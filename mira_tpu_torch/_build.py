@@ -40,6 +40,8 @@ _SIGNATURES = {
                         _P, _P],
     "mira_fold_eval": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P,
                        _P],
+    "mira_msm_fixed": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "mira_fixed_table": [_I, _P, _P, _P, _I, _I, _P, _P],
 }
 
 

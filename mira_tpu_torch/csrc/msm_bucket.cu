@@ -33,36 +33,12 @@
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "msm_common.cuh"
 
 using namespace mira;
 
 #define WINDOW 5
 #define NBUCKET 16  // magnitudes 1..16 of signed 5-bit digits
-
-// digit of window w (bits [5w, 5w+5)) of the signed recoding, whose
-// incoming carry is [ (s mod 2^(5w)) > thr ] with
-// thr = 15 * (2^(5w) - 1) / 31, the largest value digits below w can reach
-__device__ __forceinline__ int signed_digit(const uint32_t* s, int bit,
-                                            const uint32_t* thr) {
-  int wi = bit >> 5, off = bit & 31;
-  uint32_t lo = wi < 8 ? s[wi] >> off : 0u;
-  uint32_t hi = (off > 32 - WINDOW && wi + 1 < 8) ? s[wi + 1] << (32 - off) : 0u;
-  int raw = (int)((lo | hi) & 31u);
-  int carry = 0;
-#pragma unroll
-  for (int k = 7; k >= 0; k--) {
-    uint32_t sk;
-    if (32 * k + 32 <= bit) sk = s[k];
-    else if (32 * k >= bit) sk = 0u;
-    else sk = s[k] & ((1u << (bit - 32 * k)) - 1u);
-    if (sk != thr[k]) {
-      carry = sk > thr[k];
-      break;
-    }
-  }
-  int t = raw + carry;
-  return t >= NBUCKET ? t - 2 * NBUCKET : t;
-}
 
 template <class F>
 __global__ void bucket_acc(const uint32_t* sc, const uint32_t* X,
@@ -81,7 +57,7 @@ __global__ void bucket_acc(const uint32_t* sc, const uint32_t* X,
     uint32_t s[8];
 #pragma unroll
     for (int k = 0; k < 8; k++) s[k] = sc[8 * i + k];
-    int d = signed_digit(s, WINDOW * w, t8);
+    int d = signed_digit<WINDOW>(s, WINDOW * w, t8);
     if (d == 0) continue;
     fe z = fe_load(Z + 8 * i);
     if (fe_is_zero(z)) continue;
@@ -94,24 +70,6 @@ __global__ void bucket_acc(const uint32_t* sc, const uint32_t* X,
     xyzz_madd<F>(b[d - 1], x, y);
   }
   for (int v = 0; v < NBUCKET; v++) buckets[tid * NBUCKET + v] = b[v];
-}
-
-// in: (nwin, nchunks, 16) buckets; out: (nwin, ngroups, 16), entry g the
-// sum over chunks [g * group, (g + 1) * group)
-template <class F>
-__global__ void bucket_reduce(const xyzz* in, int nwin, int nchunks,
-                              int group, xyzz* out) {
-  int ngroups = (nchunks + group - 1) / group;
-  int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= nwin * ngroups * NBUCKET) return;
-  int v = tid % NBUCKET;
-  int g = (tid / NBUCKET) % ngroups;
-  int w = tid / (NBUCKET * ngroups);
-  int c1 = min(nchunks, (g + 1) * group);
-  xyzz acc = xyzz_identity<F>();
-  for (int c = g * group; c < c1; c++)
-    acc = xyzz_add<F>(acc, in[(w * nchunks + c) * NBUCKET + v]);
-  out[tid] = acc;
 }
 
 template <class F>
@@ -127,20 +85,6 @@ __global__ void window_sums(const xyzz* wb, int nwin, xyzz* ws) {
 }
 
 template <class F>
-__global__ void horner(const xyzz* ws, int nwin, uint32_t* out) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  xyzz acc = ws[nwin - 1];
-  for (int w = nwin - 2; w >= 0; w--) {
-    for (int k = 0; k < WINDOW; k++) acc = xyzz_double<F>(acc);
-    acc = xyzz_add<F>(acc, ws[w]);
-  }
-  jac r = xyzz_to_jac<F>(acc);
-  fe_store(out, r.X);
-  fe_store(out + 8, r.Y);
-  fe_store(out + 16, r.Z);
-}
-
-template <class F>
 static int launch(const uint32_t* sc, const uint32_t* X, const uint32_t* Y,
                   const uint32_t* Z, int n, int nwin, int nchunks, int group,
                   const uint32_t* thr, xyzz* buckets, xyzz* partial, xyzz* wb,
@@ -151,20 +95,12 @@ static int launch(const uint32_t* sc, const uint32_t* X, const uint32_t* Y,
                                                thr, buckets);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  int ng = (nchunks + group - 1) / group;
-  int nb = nwin * ng * NBUCKET;
-  bucket_reduce<F><<<(nb + T - 1) / T, T, 0, s>>>(buckets, nwin, nchunks,
-                                                  group, partial);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  nb = nwin * NBUCKET;
-  bucket_reduce<F><<<(nb + T - 1) / T, T, 0, s>>>(partial, nwin, ng, ng, wb);
-  err = (int)cudaGetLastError();
+  err = reduce_chunks<F>(buckets, nwin, nchunks, NBUCKET, group, partial, wb, s);
   if (err) return err;
   window_sums<F><<<(nwin + 63) / 64, 64, 0, s>>>(wb, nwin, ws);
   err = (int)cudaGetLastError();
   if (err) return err;
-  horner<F><<<1, 1, 0, s>>>(ws, nwin, out);
+  horner<F><<<1, 1, 0, s>>>(ws, nwin, WINDOW, out);
   return (int)cudaGetLastError();
 }
 

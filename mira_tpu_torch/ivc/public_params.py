@@ -73,6 +73,10 @@ class CircuitSide:
     num_g2: int = 0
     gt_degree: int = 0
     gt_cross_terms: int = 0
+    # real-proof mode: a snark.groth16.Groth16FoldContext supplying actual
+    # proof elements and real Gt cross terms (the reference folds random
+    # placeholders)
+    groth16_ctx: Optional[object] = None
 
 
 class PublicParams:
@@ -134,6 +138,7 @@ class PublicParams:
             params=primary_params,
             curve=primary_curve,
         )
+        self.primary.S.groth16_ctx = primary.groth16_ctx
 
         # --- secondary structure + initial plonk trace
         secondary_default_inputs = StepInputs.without_witness(
@@ -172,6 +177,9 @@ class PublicParams:
             secondary.gt_cross_terms,
         )
         secondary_S = secondary_runner.collect_structure()
+        # attached before the initial trace below: the zero-step SPS must
+        # already draw real proof elements
+        secondary_S.groth16_ctx = secondary.groth16_ctx
         self.secondary = CircuitPublicParams(
             S=secondary_S,
             ck=secondary.ck,

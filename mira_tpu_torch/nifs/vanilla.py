@@ -6,8 +6,9 @@ points j = 1..d-1 by the fold evaluator (the kernel on the card) and the
 degree slices are recovered with the inverse Vandermonde, using the two
 satisfaction invariants (Q(0) = E, leading coefficient 0) as mira_tpu does;
 the combine runs as elementwise field ops on the witness device.  The Gt
-cross terms are the reference's seeded random Tuple12s, drawn from `rng` in
-mira_tpu's order.
+cross terms are the real pairing cross terms of the structure's Groth16
+context where one is attached, else the reference's seeded random
+Tuple12s, drawn from `rng` in mira_tpu's order.
 """
 
 from __future__ import annotations
@@ -147,11 +148,16 @@ class VanillaFS:
             # T_d = 0 on satisfied traces: its commitment is the identity
             terms = cross_terms[:-1] if skip_last else cross_terms
             decode = ck.commit_device_many(terms, defer=True)
-        Fb = field(S.curve.base_modulus)
-        gt_commits = [
-            Tuple12.generator(Fb).scalar_mul(rng.randrange(p))
-            for _ in range(S.target_group_cross_terms)
-        ]
+        if S.groth16_ctx is not None:
+            # host pairings while the cross-term MSMs run on the device
+            with span("gt_cross_terms"):
+                gt_commits = S.groth16_ctx.gt_cross_terms(U1, U2)
+        else:
+            Fb = field(S.curve.base_modulus)
+            gt_commits = [
+                Tuple12.generator(Fb).scalar_mul(rng.randrange(p))
+                for _ in range(S.target_group_cross_terms)
+            ]
         with span("cross_term_commit"):
             g1_commits = list(decode())
             if skip_last:

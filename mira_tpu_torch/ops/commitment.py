@@ -4,9 +4,23 @@ The key is array-backed: (n, 2, 16) uint32 raw (non-Montgomery) 16-bit limb
 affine coordinates, the format of mira_tpu's `.cache/ck/<curve>/<label>/
 {k}-svdw.npy` files, so both packages commit with one key.  Keys are made by
 the native hash-to-curve generator (mira_tpu/ops/native_keygen.py) and
-checked on load.  Every commitment is one bucket MSM (ops/cuda_msm.py) on
-the key's device; there are no fixed-base multiples tables, which matches
-mira_tpu at MIRA_MSM_FB=0.
+checked on load.
+
+Which commitment takes which MSM is mira_tpu's default configuration
+(MIRA_MSM_FB=1): the per-step delta commitments (`commit_delta`) and the
+recurring widths of `commit_device_many` (the cross terms) run the
+fixed-base MSM over a multiples table, built for a width on its second
+sighting; one-shot full-width commits (`commit_device`, `commit_ints`: the
+zero step, templates, the decider) always run the bucket MSM.  A table is
+built only while it takes at most half of the memory free on its device;
+a width that does not fit runs the bucket MSM and counts in `fb_skipped`.
+
+Template commitments persist in a directory of the port's own, keyed by
+curve, label, hash-to-curve and a digest of the key, never in mira_tpu's
+`.cache/fbtab`, and a loaded one off the curve raises.  Multiples tables are
+not persisted: the card builds one in milliseconds, while writing one to
+disk cost 0.2-1.0 s and reading it back would cost a file read and a
+host-to-device copy.
 """
 
 from __future__ import annotations
@@ -24,10 +38,12 @@ from mira_tpu.fields.host import field
 from ..curves.torch_curve import jacobian_ops
 from ..fields.limbs import limb_field
 from ..utils.tracing import span
-from .cuda_msm import msm
-from .msm import encode_scalars
+from .cuda_msm import fixed_table, msm, msm_fixed
+from .msm import encode_scalars, fixed_base_window
 
 HTC = "svdw"  # hash-to-curve of the key files (mira_tpu's default)
+DELTA_WINDOW = 5  # table window of the delta commitments (mira_tpu's)
+FB_MIN_WIDTH = 256  # narrower MSMs never build a table (as in mira_tpu)
 
 
 class LazyPoint(LazyAffinePoint):
@@ -86,6 +102,65 @@ def _ints_to_limbs(vals) -> np.ndarray:
     return np.frombuffer(buf, dtype="<u2").reshape(len(vals), 16).astype(np.uint32)
 
 
+def _key_rows(curve: CurveParams, label: bytes, start: int, stop: int) -> np.ndarray:
+    """Rows [start, stop) of the key of `label` as (n, 2, 16) raw limbs: the
+    hash-to-curve images of 32-byte blocks start..stop-1 of the label's
+    SHAKE-256 stream, as mira_tpu's keygen makes them (its native library
+    where it loads, its Python hash-to-curve otherwise)."""
+    import ctypes
+
+    from mira_tpu.curves.svdw import CURVE_IDS, hash_to_curve, svdw_constants
+    from mira_tpu.ops.native_keygen import (
+        _field_pack,
+        _int_to_u64x4,
+        load,
+        u8p,
+        u64p,
+        u64x4_to_limbs16,
+    )
+
+    n = stop - start
+    stream = hashlib.shake_256(label).digest(32 * stop)[32 * start :]
+    lib = load()
+    if lib is None:
+        htc = hash_to_curve(curve, "from_uniform_bytes")
+        pts = [htc(stream[32 * i : 32 * (i + 1)]) for i in range(n)]
+        return np.stack([_ints_to_limbs([p.x.v for p in pts]),
+                         _ints_to_limbs([p.y.v for p in pts])], axis=1)
+    p = curve.base_modulus
+    fparams, q_bytes, q12_bytes, s = _field_pack(p)
+    svdw = np.concatenate([_int_to_u64x4(v)
+                           for v in (*svdw_constants(p, 0, curve.b), curve.b)])
+    dst = np.frombuffer(f"from_uniform_bytes-{CURVE_IDS[curve.name]}"
+                        "_XMD:SHA-256_SVDW_RO_".encode(), dtype=np.uint8).copy()
+    buf = np.frombuffer(stream, dtype=np.uint8)
+    out = np.empty((n, 2, 4), dtype="<u8")
+    fn = lib.mira_keygen_mapped
+    fn.argtypes = [u8p, ctypes.c_size_t, u64p, u8p, u8p, ctypes.c_int,
+                   u64p, u8p, ctypes.c_size_t, u64p, ctypes.c_int]
+    fn.restype = None
+    fn(buf.ctypes.data_as(u8p), n, fparams.ctypes.data_as(u64p),
+       q_bytes.ctypes.data_as(u8p), q12_bytes.ctypes.data_as(u8p), s,
+       svdw.ctypes.data_as(u64p), dst.ctypes.data_as(u8p), len(dst),
+       out.ctypes.data_as(u64p), os.cpu_count() or 4)
+    return u64x4_to_limbs16(out)
+
+
+def key_digest(limbs: np.ndarray) -> str:
+    """Digest of a key: its length and its first and last 256 rows (the
+    rows a regenerated or truncated key would change)."""
+    h = hashlib.sha256(len(limbs).to_bytes(8, "little"))
+    h.update(np.ascontiguousarray(limbs[:256]).tobytes())
+    h.update(np.ascontiguousarray(limbs[-256:]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _free_bytes(device: torch.device) -> int:
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
 class CommitmentKey:
     def __init__(self, curve: CurveParams, limbs: np.ndarray, device="cpu"):
         """limbs: (n, 2, 16) uint32 raw (non-Montgomery) affine coordinates."""
@@ -93,8 +168,11 @@ class CommitmentKey:
         self.device = torch.device(device)
         self._limbs = np.ascontiguousarray(limbs, dtype=np.uint32)
         self._enc_cache = None
-        self._delta_cache = {}  # tape uid -> (C_template, gathered points)
-        self._aux_dir: Optional[str] = None  # ctmpl-*.npy disk home
+        self._fb_tables = {}  # padded MSM width -> (window, table)
+        self._fb_seen = {}  # padded MSM width -> sightings without a table
+        self._delta_cache = {}  # tape uid -> (C_template, table, points)
+        self._aux_dir: Optional[str] = None  # derived-artifact disk home
+        self.fb_skipped = 0  # tables not built because they did not fit
 
     def __len__(self):
         return self._limbs.shape[0]
@@ -118,35 +196,14 @@ class CommitmentKey:
         return tuple(c[:n] for c in self._enc_cache)
 
     @classmethod
-    def from_points(cls, curve: CurveParams, points: List[AffinePoint],
-                    device="cpu"):
-        limbs = np.stack([_ints_to_limbs([p.x.v for p in points]),
-                          _ints_to_limbs([p.y.v for p in points])], axis=1)
-        return cls(curve, limbs, device)
-
-    @classmethod
     def setup(cls, curve: CurveParams, k: int, label: bytes = b"",
               device="cpu") -> "CommitmentKey":
-        from mira_tpu.ops.native_keygen import keygen_native, u64x4_to_limbs16
-
-        n = 1 << k
-        xy = keygen_native(curve, n, label)
-        if xy is not None:
-            return cls(curve, u64x4_to_limbs16(xy), device)
-        from mira_tpu.curves.svdw import hash_to_curve
-
-        htc = hash_to_curve(curve, "from_uniform_bytes")
-        stream = hashlib.shake_256(label).digest(32 * n)
-        points = [htc(stream[32 * i : 32 * (i + 1)]) for i in range(n)]
-        return cls.from_points(curve, points, device)
+        return cls(curve, _key_rows(curve, label, 0, 1 << k), device)
 
     @classmethod
     def load_or_setup_cache(cls, curve: CurveParams, k: int, label: str,
                             cache_dir: str = ".cache/ck",
                             device="cpu") -> "CommitmentKey":
-        aux_dir = os.path.join(os.path.dirname(os.path.normpath(cache_dir)),
-                               "fbtab", curve.name, label)
-
         def _path(kk):
             return os.path.join(cache_dir, curve.name, label, f"{kk}-{HTC}.npy")
 
@@ -165,10 +222,22 @@ class CommitmentKey:
             _validate_limbs_on_curve(curve, arr)
             key = cls(curve, arr, device)
         else:
-            key = cls.setup(curve, k, label.encode(), device)
+            # ... and a key of any k' < k is this key's prefix: only the
+            # rows past it are generated
+            k0 = next((kk for kk in range(k - 1, -1, -1)
+                       if os.path.exists(_path(kk))), None)
+            if k0 is None:
+                key = cls.setup(curve, k, label.encode(), device)
+            else:
+                head = np.load(_path(k0))
+                _validate_limbs_on_curve(curve, head)
+                tail = _key_rows(curve, label.encode(), 1 << k0, 1 << k)
+                key = cls(curve, np.concatenate([head, tail]), device)
             os.makedirs(os.path.dirname(path), exist_ok=True)
             np.save(path, key._limbs)
-        key._aux_dir = aux_dir
+        key._aux_dir = os.path.join(
+            os.path.dirname(os.path.normpath(cache_dir)), "torch_derived",
+            curve.name, label, f"{HTC}-{key_digest(key._limbs)}")
         return key
 
     # -- commitment ----------------------------------------------------------
@@ -177,24 +246,27 @@ class CommitmentKey:
         return ops.decode_points(tuple(c[None] for c in out))[0]
 
     def commit_ints(self, values: List[int]) -> AffinePoint:
-        """Commit to raw scalar ints (host API)."""
+        """Commit to raw scalar ints (host API; bucket MSM)."""
         if len(values) > len(self):
             raise ValueError(f"input too long: {len(values)} > key size {len(self)}")
         sc = encode_scalars(values, self.curve.scalar_modulus, self.device)
-        return self._commit_plain_limbs(sc)
+        return self._decode(msm(sc, self._enc_slice(sc.shape[0]), self.curve))
 
     def commit_device(self, witness_mont) -> AffinePoint:
-        """Commit to a Montgomery word vector on the key's device."""
+        """Commit to a Montgomery word vector on the key's device: a one-shot
+        full-width commit, so the bucket MSM, never a table."""
         n = witness_mont.shape[0]
         if n > len(self):
             raise ValueError(f"input too long: {n} > key size {len(self)}")
         lf = limb_field(self.curve.scalar_modulus)
-        return self._commit_plain_limbs(lf.to_plain(witness_mont))
+        return self._decode(msm(lf.to_plain(witness_mont), self._enc_slice(n),
+                                self.curve))
 
     def commit_device_many(self, vectors, defer=False):
-        """Commit several Montgomery vectors, decoding all results after the
-        last MSM is queued.  With defer=True, returns a zero-arg callable
-        that decodes, so the caller can do host work meanwhile."""
+        """Commit several Montgomery vectors (the recurring cross-term
+        widths), decoding all results after the last MSM is queued.  With
+        defer=True, returns a zero-arg callable that decodes, so the caller
+        can do host work meanwhile."""
         lf = limb_field(self.curve.scalar_modulus)
         outs = []
         with span("ct_msm_dispatch"):
@@ -211,12 +283,47 @@ class CommitmentKey:
         return _decode if defer else _decode()
 
     def _msm_device(self, scalars):
-        """One MSM over plain-word scalars; returns the Jacobian word triple
-        without decoding (asynchronous on the card)."""
-        return msm(scalars, self._enc_slice(scalars.shape[0]), self.curve)
+        """One MSM over plain-word scalars at a recurring width; returns the
+        Jacobian word triple without decoding (asynchronous on the card).
+        The width pads to a power of two (at most the key size), as in
+        mira_tpu, so that widths that pad alike share one table."""
+        n = scalars.shape[0]
+        n_pad = min(1 << max((n - 1).bit_length(), 0), len(self))
+        if n_pad < n:
+            n_pad = len(self)
+        tab = self._fixed_table(n_pad)
+        if tab is None:
+            return msm(scalars, self._enc_slice(n), self.curve)
+        window, table = tab
+        if n_pad > n:
+            scalars = torch.cat((scalars, scalars.new_zeros(n_pad - n, scalars.shape[1])))
+        return msm_fixed(scalars, table, self.curve, window)
 
-    def _commit_plain_limbs(self, scalars) -> AffinePoint:
-        return self._decode(self._msm_device(scalars))
+    def _fixed_table(self, n: int):
+        """The multiples table of the first n key points, or None: tables
+        are for widths of at least FB_MIN_WIDTH seen twice (the first
+        sighting runs the bucket MSM), and only while they fit in memory."""
+        if n < FB_MIN_WIDTH:
+            return None
+        hit = self._fb_tables.get(n)
+        if hit is not None:
+            return hit
+        window = fixed_base_window(n)
+        self._fb_seen[n] = self._fb_seen.get(n, 0) + 1
+        if self._fb_seen[n] < 2 or not self._fits(_table_bytes(n, window)):
+            return None
+        self._fb_tables[n] = (window, fixed_table(self._enc_slice(n), self.curve,
+                                                  window))
+        return self._fb_tables[n]
+
+    def _fits(self, nbytes: int) -> bool:
+        """A table may take at most half of the memory free on the key's
+        device (the fold step's own transients need the rest); else it is
+        not built and `fb_skipped` counts it."""
+        if 2 * nbytes <= _free_bytes(self.device):
+            return True
+        self.fb_skipped += 1
+        return False
 
     def commit_delta(self, dw) -> AffinePoint:
         """Incremental commitment of a tape-replayed DeviceWitness
@@ -226,9 +333,11 @@ class CommitmentKey:
             C(W) = C(template) + MSM(value - template_value @ positions),
 
         an MSM over the write positions instead of num_cols * 2^k points.
-        The template commitment persists as ctmpl-<template hash>.npy beside
-        the key cache; the sum is returned as a LazyPoint whose decode waits
-        for the first coordinate read."""
+        The positions are fixed per tape, so their key points get a
+        multiples table (window DELTA_WINDOW), built on first use, and the
+        per-step MSM is the fixed-base one.  The template commitment
+        persists as ctmpl-<template hash>.npy; the sum is returned as a
+        LazyPoint whose decode waits for the first coordinate read."""
         lf = limb_field(self.curve.scalar_modulus)
         token = dw.cache_token.uid
         entry = self._delta_cache.get(token)
@@ -238,13 +347,23 @@ class CommitmentKey:
             if C_t is None:
                 C_t = self.commit_device(dw.template_mont)
                 self._save_template_commit(f"ctmpl-{tag}.npy", C_t)
-            entry = (C_t, self._encode_rows(self._limbs[dw.positions_np]))
+            pos = dw.positions_np
+            table = gpts = None
+            if self._fits(_table_bytes(len(pos), DELTA_WINDOW)):
+                table = fixed_table(self._encode_rows(self._limbs[pos]),
+                                    self.curve, DELTA_WINDOW)
+            else:
+                gpts = self._encode_rows(self._limbs[pos])
+            entry = (C_t, table, gpts)
             self._delta_cache[token] = entry
-        C_t, gpts = entry
+        C_t, table, gpts = entry
         with span("delta_scalars"):
             delta = lf.to_plain(dw.delta_mont())
         with span("delta_msm"):
-            out = msm(delta, gpts, self.curve)
+            if table is not None:
+                out = msm_fixed(delta, table, self.curve, DELTA_WINDOW)
+            else:
+                out = msm(delta, gpts, self.curve)
 
         def _materialize():
             with span("delta_decode"):
@@ -252,12 +371,38 @@ class CommitmentKey:
 
         return LazyPoint(self.curve, _materialize)
 
-    # -- template commitment persistence -------------------------------------
+    def table_shapes(self):
+        """(lanes, window) of each multiples table held on the device: the
+        delta tables, then the recurring widths'."""
+        return ([(e[1].shape[0], DELTA_WINDOW) for e in self._delta_cache.values()
+                 if e[1] is not None]
+                + [(n, w) for n, (w, _) in sorted(self._fb_tables.items())])
+
+    def release_device_cache(self):
+        """Free every derived structure on the device (key encoding,
+        multiples tables, delta tables), e.g. between the folding phase and
+        the decider; each rebuilds on its next use."""
+        self._enc_cache = None
+        self._fb_tables = {}
+        self._delta_cache = {}
+
+    # -- template-commitment persistence ---------------------------------------
+    def _aux_path(self, name: str) -> Optional[str]:
+        return None if self._aux_dir is None else os.path.join(self._aux_dir, name)
+
+    def _write(self, name: str, arr: np.ndarray):
+        path = self._aux_path(name)
+        if path is None:
+            return
+        os.makedirs(self._aux_dir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            np.save(f, arr)
+        os.replace(tmp, path)
+
     def _load_template_commit(self, name: str) -> Optional[AffinePoint]:
-        if self._aux_dir is None:
-            return None
-        path = os.path.join(self._aux_dir, name)
-        if not os.path.exists(path):
+        path = self._aux_path(name)
+        if path is None or not os.path.exists(path):
             return None
         xv, yv, inf = _limbs_to_ints(np.load(path))
         if inf:
@@ -269,12 +414,11 @@ class CommitmentKey:
         return pt
 
     def _save_template_commit(self, name: str, pt: AffinePoint):
-        if self._aux_dir is None:
-            return
-        os.makedirs(self._aux_dir, exist_ok=True)
-        path = os.path.join(self._aux_dir, name)
         vals = [0, 0, 1] if pt.is_inf else [pt.x.v, pt.y.v, 0]
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "wb") as f:
-            np.save(f, _ints_to_limbs(vals))
-        os.replace(tmp, path)
+        self._write(name, _ints_to_limbs(vals))
+
+
+def _table_bytes(n: int, window: int) -> int:
+    """Bytes of a multiples table: n lanes of 2^(w-1) (x, y) pairs of 32
+    bytes each."""
+    return n * (1 << (window - 1)) * 64

@@ -115,6 +115,10 @@ class PlonkStructure:
     num_g2_elems: int = 0
     target_group_folding_degree: int = 0
     target_group_cross_terms: int = 0
+    # real-proof mode: a snark.groth16.Groth16FoldContext that supplies the
+    # instances' G1/G2 elements, the Gt cross terms and the Gt decider check
+    groth16_ctx: Optional[object] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def modulus(self) -> int:
@@ -212,6 +216,9 @@ class PlonkStructure:
         with span("sat_E_commit"):
             if ck.commit_device(W.E) != U.E_commitment:
                 raise SatError("E commitment mismatch")
+        if self.groth16_ctx is not None:
+            with span("sat_gt"):
+                self.groth16_ctx.gt_is_sat(U)  # the real-pairing Gt decider
 
     def is_sat_perm(self, U: "RelaxedPlonkInstance", W: "RelaxedPlonkWitness"):
         """P*Z = Z with Z = instance || advice part of W[0]."""
@@ -291,6 +298,11 @@ class PlonkStructure:
         return out
 
     def _random_group_elements(self, rng):
+        """The fresh instance's G1/G2 elements: the next proof's [A, C, vk_x]
+        and [B] in real-proof mode, else seeded random placeholders (as the
+        reference's SPS draws them)."""
+        if self.groth16_ctx is not None:
+            return self.groth16_ctx.provide_elements()
         Fb = field(self.curve.base_modulus)
         g1 = [AffinePoint.random(self.curve, rng) for _ in range(self.num_g1_elems)]
         g2 = [G2Point.random(rng, Fb) for _ in range(self.num_g2_elems)]

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from mira_tpu.curves.host import BN254_G1, GRUMPKIN
+from mira_tpu.curves.host import BN254_G1, GRUMPKIN, AffinePoint
 from mira_tpu.fields.limbs import limb_field as jax_limb_field
 from mira_tpu.ops.commitment import CommitmentKey as MiraKey
 from mira_tpu_torch.fields.limbs import limb_field
@@ -122,3 +122,70 @@ def test_lazy_point_failed_decode_raises_once():
     with pytest.raises(RuntimeError):
         pt == pt  # noqa: B015
     assert calls == [1]
+
+
+def _delta_commit(key, seed=7):
+    lf = limb_field(key.curve.scalar_modulus)
+    dw, full = _device_witness(lf, 4, 16, seed=seed)
+    return key.commit_delta(dw), key.commit_ints(full), dw
+
+
+def test_derived_files_keyed_by_the_key(tmp_path):
+    """A template commitment written for one key is not read for another
+    key of the same curve and label (a regenerated key file), and mira_tpu's
+    .cache/fbtab files are never read."""
+    cache = str(tmp_path / "ck")
+    a = CommitmentKey.load_or_setup_cache(BN254_G1, K, "keyed", cache_dir=cache)
+    got, want, dw = _delta_commit(a)
+    assert got == want
+    written = list((tmp_path / "torch_derived").rglob("ctmpl-*.npy"))
+    assert len(written) == 1
+    # the key file is replaced by another key's points (same curve, label)
+    other = CommitmentKey.setup(BN254_G1, K, b"another label")
+    np.save(tmp_path / "ck" / "bn254" / "keyed" / f"{K}-svdw.npy", other._limbs)
+    # and mira_tpu's derived-artifact directory holds a wrong template point
+    fb = tmp_path / "fbtab" / "bn254" / "keyed"
+    fb.mkdir(parents=True)
+    g = AffinePoint.generator(BN254_G1)
+    np.save(fb / written[0].name, np.stack([
+        np.frombuffer(v.to_bytes(32, "little"), "<u2").astype(np.uint32)
+        for v in (g.x.v, g.y.v, 0)]))
+    b = CommitmentKey.load_or_setup_cache(BN254_G1, K, "keyed", cache_dir=cache)
+    assert b._aux_dir != a._aux_dir
+    got_b, want_b, _ = _delta_commit(b)
+    assert got_b == want_b != want
+    assert len(list((tmp_path / "torch_derived").rglob("ctmpl-*.npy"))) == 2
+
+
+def test_corrupted_template_commit_raises(tmp_path):
+    """A persisted template commitment that was altered raises on load
+    instead of being used; multiples tables are never written to disk."""
+    cache = str(tmp_path / "ck")
+    key = CommitmentKey.load_or_setup_cache(GRUMPKIN, 8, "lane", cache_dir=cache)
+    got, want, _ = _delta_commit(key)
+    assert got == want
+    lf = limb_field(GRUMPKIN.scalar_modulus)
+    v = lf.encode(list(range(1, 257)))
+    assert key.commit_device_many([v, v]) == [key.commit_device(v)] * 2
+    assert set(key._fb_tables) == {256} and len(key._delta_cache) == 1
+    path, = (tmp_path / "torch_derived").rglob("*.npy")
+    assert path.name.startswith("ctmpl-")
+    point = np.load(path)
+    point[0, 0] ^= 1
+    np.save(path, point)
+    again = CommitmentKey.load_or_setup_cache(GRUMPKIN, 8, "lane", cache_dir=cache)
+    with pytest.raises(ValueError, match="corrupted template commitment"):
+        _delta_commit(again)
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, GRUMPKIN], ids=["bn254", "grumpkin"])
+def test_key_grows_from_a_cached_smaller_key(curve, tmp_path):
+    """A key of 2^k' cached under a label is the first rows of the key of
+    2^k: loading 2^k generates only the rows past it, and the result equals
+    mira_tpu's key made in one go."""
+    cache = str(tmp_path / "ck")
+    small = CommitmentKey.load_or_setup_cache(curve, 5, "grow", cache_dir=cache)
+    big = CommitmentKey.load_or_setup_cache(curve, 8, "grow", cache_dir=cache)
+    assert np.array_equal(big._limbs[:32], small._limbs)
+    assert np.array_equal(big._limbs, MiraKey.setup(curve, 8, b"grow")._limbs)
+    assert (tmp_path / "ck" / curve.name / "grow" / "8-svdw.npy").exists()

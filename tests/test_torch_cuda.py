@@ -17,7 +17,12 @@ from mira_tpu_torch.convert import msm_reference
 from mira_tpu_torch.curves.torch_curve import jacobian_ops
 from mira_tpu_torch.fields.limbs import limb_field
 from mira_tpu_torch.ops import cuda_msm
-from mira_tpu_torch.ops.msm import encode_scalars, msm_plain
+from mira_tpu_torch.ops.msm import (
+    encode_scalars,
+    msm_fixed_plain,
+    msm_plain,
+    precompute_fixed_table_plain,
+)
 from mira_tpu_torch.table.runner import CircuitRunner
 
 from torch_port_helpers import cuda_device  # noqa: F401
@@ -127,3 +132,49 @@ def test_fold_eval_kernel_matches_plain(cuda_device):  # noqa: F811
         [lf.encode(w, cuda_device) for w in Ws1],
         [lf.encode(w, cuda_device) for w in Ws2], js, ch1, ch2)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+@pytest.mark.parametrize("window", [5, 6])
+@pytest.mark.parametrize("n", [1, 255, 2117, 4096])
+def test_fixed_kernels_match_plain_and_host(curve, window, n, cuda_device):  # noqa: F811
+    """The multiples table and the fixed-base MSM against their plain
+    versions and the host MSM: duplicate bases, a zero scalar, an identity
+    lane, and scalars 1, r - 1 and 2^250 - 1 (every raw 5-bit digit
+    maximal, so the carry runs into the extra window)."""
+    sc, pts = _adversarial(curve, max(n, 11), seed=n + window)
+    sc[:3] = [1, curve.scalar_modulus - 1, (1 << 250) - 1]
+    sc, pts = sc[:n], pts[-n:]
+    ops = jacobian_ops(curve.name)
+    P = ops.encode_points(pts, cuda_device)
+    table = cuda_msm.fixed_table_cuda(P, curve, window)
+    plain_table = precompute_fixed_table_plain(P, curve, window)
+    torch.cuda.synchronize()
+    assert torch.equal(table, plain_table)
+    s = encode_scalars(sc, curve.scalar_modulus, cuda_device)
+    got = ops.decode_points(tuple(
+        c[None] for c in cuda_msm.msm_fixed_cuda(s, table, curve, window)))[0]
+    plain = ops.decode_points(tuple(
+        c[None] for c in msm_fixed_plain(s, table, curve, window)))[0]
+    assert got == plain == msm_reference(s, P, curve)
+
+
+def test_fixed_kernel_identity_cases(cuda_device):  # noqa: F811
+    P = AffinePoint.random(BN254_G1, random.Random(3))
+    ident = AffinePoint.identity(BN254_G1)
+    ops = jacobian_ops("bn254")
+    for sc, pts, want in (([0, 0], [P, P], ident), ([3], [ident], ident),
+                          ([1, 1], [P, P], P.double()),
+                          ([1, 1], [P, P.neg()], ident)):
+        table = cuda_msm.fixed_table(ops.encode_points(pts, cuda_device),
+                                     BN254_G1, 5)
+        s = encode_scalars(sc, BN254_G1.scalar_modulus, cuda_device)
+        out = cuda_msm.msm_fixed(s, table, BN254_G1, 5)
+        assert ops.decode_points(tuple(c[None] for c in out))[0] == want
+
+
+def test_fixed_kernels_reject_other_windows(cuda_device):  # noqa: F811
+    ops = jacobian_ops("bn254")
+    P = ops.encode_points([AffinePoint.generator(BN254_G1)], cuda_device)
+    with pytest.raises(ValueError):
+        cuda_msm.fixed_table(P, BN254_G1, 4)

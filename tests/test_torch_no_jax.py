@@ -1,5 +1,6 @@
 """The port never imports jax: every mira_tpu_torch module imports, and a
-tiny SPS trace + commitment + is_sat + fold evaluation runs, in a process
+tiny SPS trace + commitment + is_sat + fold evaluation, a commitment through
+a multiples table and a Groth16 prove/verify run, in a process
 where importing jax raises, and in a plain process jax stays unloaded; and
 no import statement in the port's sources, inside functions included, names
 jax or a jax-bound mira_tpu module."""
@@ -77,6 +78,19 @@ out = S.fold_evaluator("cpu").fold_eval_multi(trace.w.W, trace.w.W, [0, 1, 2],
                                               [1], [1])
 assert out.shape == (3, 8, 8)
 assert not trace.u.W_commitments[0].is_inf
+
+# a recurring width through its multiples table, and a Groth16 proof
+import random
+from mira_tpu_torch.fields.limbs import limb_field
+from mira_tpu_torch.snark import groth16
+
+v = limb_field(BN254_G1.scalar_modulus).encode(list(range(256)))
+ck8 = CommitmentKey.setup(BN254_G1, 8, b"no-jax")
+assert ck8.commit_device_many([v, v]) == [ck8.commit_device(v)] * 2
+assert set(ck8._fb_tables) == {256}
+r1cs, z = groth16.benchmark_r1cs(4)
+pk = groth16.setup(r1cs, random.Random(0))
+assert groth16.verify(pk.vk, groth16.prove(pk, r1cs, z, random.Random(1)), z[1:3])
 print("JAX_LOADED", "jax" in sys.modules)
 """
 
