@@ -21,6 +21,23 @@ row count:
   1000-constraint circuit folded with real pairing Gt cross terms, two fold
   steps and verify(strict=True), which includes the real-pairing Gt decider.
 
+Then three paths of the polynomial and hashing side, each at full size:
+
+- the NTT (ops/ntt.py): random vectors over BN254 Fr at n = 2^16, 2^20 and
+  2^24 through the four-step kernel and, up to 2^20, the per-stage kernel,
+  against the plain version (2^24: round trips, coset round trips and spot
+  values of a sparse input against a host evaluation);
+- the batched Poseidon sponge (ops/poseidon_device.py): 2-to-1 hashes of
+  2^16 and 2^20 random pairs against the plain version and the host sponge,
+  and a Merkle tree of 2^20 leaves reduced level by level on the card;
+- ProtoGalaxy (nifs/protogalaxy.py) at k=17: two satisfying traces of the
+  k=17 path's primary step-folding circuit, made with its 2^21 key (three
+  per fold: ProtoGalaxy needs L + 1 a power of two once a gate has a constant
+  term), folded into a new accumulator and then again onto the result; each
+  fold counts
+  only if the verifier's (betas', e, U) equal the prover's and the folded
+  trace satisfies F(betas', 0)(0) == e'.
+
 Kernel launches are counted over each path.  The keys of both paths come
 from one background thread started first (the native keygen releases the
 GIL): the k=17 path's 2^21 keys while the kernels build, then SnarkStar's,
@@ -46,6 +63,30 @@ from concurrent.futures import ThreadPoolExecutor
 K = 17
 FOLD_STEPS = 3
 SEED = 20261016
+NTT_SIZES = (16, 20, 24)  # log n of the NTT path
+NTT_SWITCH_SIZES = (4, 6, 8, 10, 12, 14)  # log n where both engines are timed
+NTT_PLAIN_MAX = 20  # the largest of them that the plain version also runs
+POSEIDON_SIZES = (16, 20)  # log N of the Poseidon path; the last also the tree
+# Incoming traces of each ProtoGalaxy fold.  L + 1 must be a power of two:
+# with L = 2 the fold domain has a fourth point where every Lagrange weight
+# of the folded witness vanishes, and a gate with a constant term (the main
+# gate's) does not vanish there, so Z would not divide G - F(alpha) L_0.
+PG_TRACES = 3
+# the kernels the two IVC paths run
+MSM_PATH_KERNELS = ("msm_bucket", "msm_fixed", "fixed_table", "fold_eval")
+
+# The card's published peaks, against which each kernel's bound is stated
+# (NVIDIA H100 SXM data sheet): device-memory bytes per second, and int32
+# multiply-adds per second, taken as a quarter of the 67 TFLOP/s float32
+# figure (64 INT32 lanes per SM against 128 FP32 lanes at 2 flops per FMA).
+MEM_BYTES_PER_S = 3.35e12
+INT32_MAD_PER_S = 16.75e12
+# One CIOS Montgomery product of csrc/field.cuh: 8 x (8 + 8 + 1) = 136
+# 32x32->64-bit multiply-adds, two int32 mad (lo, hi) each.
+MADS_PER_PRODUCT = 272
+MADD_PRODUCTS = 10  # field products of one mixed XYZZ addition (xyzz_madd)
+ADD_PRODUCTS = 14  # of one full XYZZ addition (xyzz_add)
+JAC_ADD_PRODUCTS = 16  # of one Jacobian addition (jac_add)
 SNARK_STEPS = 2  # the reference's slow test runs 2, its bench 4
 SNARK_CONSTRAINTS = 1000
 
@@ -90,6 +131,81 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def bound(nbytes: float, products: float) -> dict:
+    """The least time the card could take: the larger of `nbytes` (each input
+    read once, each output written once) over the memory rate and `products`
+    Montgomery products over the int32 multiply-add rate, in milliseconds,
+    and which of the two it is."""
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = products * MADS_PER_PRODUCT / INT32_MAD_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": by}
+
+
+def msm_bucket_bound(n: int, curve) -> dict:
+    """What a signed 5-bit Pippenger needs: per window one mixed addition per
+    point into its bucket and two full additions per bucket in the running
+    sum.  How the kernel splits the points into chunks and reduces them is
+    its own cost and is not counted."""
+    from mira_tpu_torch.ops.msm import NBUCKET, num_windows
+
+    nwin = num_windows(curve.scalar_modulus.bit_length())
+    products = nwin * (n * MADD_PRODUCTS + 2 * NBUCKET * ADD_PRODUCTS)
+    return bound(n * 4 * 32 + 96, products)
+
+
+def msm_fixed_bound(n: int, window: int, curve) -> dict:
+    """What a fixed-base signed-digit MSM needs: one table lookup (64 B of
+    the 2^(w-1) entries per lane, each counted once) and one mixed addition
+    per point and window.  The kernel's per-chunk partial sums are its own
+    cost and are not counted."""
+    from mira_tpu_torch.ops.msm import num_windows
+
+    nwin = num_windows(curve.scalar_modulus.bit_length(), window)
+    products = nwin * n * MADD_PRODUCTS
+    return bound(n * 32 + n * (1 << (window - 1)) * 64 + 96, products)
+
+
+def fixed_table_bound(n: int, window: int, curve) -> dict:
+    """What the table of affine multiples needs per lane: 2^(w-1) - 1
+    Jacobian additions, the prefix products of their Z's, six products per
+    entry on the way back to affine, and three for the lane's share of one
+    inversion batched across all lanes (one Fermat inversion in all: a square
+    per bit of p - 2 and a product per set bit)."""
+    ntab = 1 << (window - 1)
+    e = curve.base_modulus - 2
+    inv = e.bit_length() + bin(e).count("1")
+    products = n * ((ntab - 1) * JAC_ADD_PRODUCTS + (ntab - 1) + 3 + 6 * ntab) + inv
+    return bound(n * 3 * 32 + n * ntab * 64, products)
+
+
+def fold_eval_bound(ops, n_static: int, n_advice: int, nrow: int, n_j: int) -> dict:
+    """csrc/fold_eval.cu per row and fold point: one product per MUL op and
+    one per folded advice load; the static and advice columns read once,
+    one output row per fold point."""
+    from mira_tpu_torch.polynomial import fold_evaluator as fe
+
+    products = sum(1 for op in ops if op[0] in (fe.OP_MUL, fe.OP_LOAD_FOLD))
+    nbytes = (n_static + 2 * n_advice + n_j) * nrow * 32
+    return bound(nbytes, products * nrow * n_j)
+
+
+def ntt_products(log_n: int) -> int:
+    """Montgomery products a size-2^log_n radix-2 transform needs: one per
+    butterfly.  The four-step kernel's mid twiddles are its own cost and are
+    not counted, so both engines are held to the same bound."""
+    return (1 << log_n) // 2 * log_n
+
+
+def poseidon_products(t: int, r_f: int, r_p: int, length: int) -> int:
+    """Montgomery products of one fixed-length sponge: per permutation r_f
+    full rounds (3 t for the S-boxes, t^2 for the matrix) and r_p partial
+    rounds (3 + t + (t - 1))."""
+    rate = t - 1
+    perms = -(-length // rate) + (1 if length % rate == 0 else 0)
+    return perms * (r_f * (3 * t + t * t) + r_p * (3 + t + t - 1))
+
+
 def max_abs_err(ints_a, ints_b) -> int:
     """Largest |a - b| over two equal-length lists of field or coordinate
     integers (0 when the kernel and its plain version agree exactly)."""
@@ -131,7 +247,7 @@ def check_field_kernels(torch, dev, rng):
     from mira_tpu_torch import _build
     from mira_tpu_torch.curves.torch_curve import AffinePoint, jacobian_ops
     from mira_tpu_torch.fields.limbs import limb_field
-    from mira_tpu_torch.workloads.poseidon import BN254_G1, GRUMPKIN
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
 
     lib = _build.lib()
     for curve in (BN254_G1, GRUMPKIN):
@@ -215,7 +331,7 @@ def check_msm_small(torch, dev, rng):
     from mira_tpu_torch.curves.torch_curve import jacobian_ops
     from mira_tpu_torch.ops import cuda_msm
     from mira_tpu_torch.ops.msm import encode_scalars, msm_plain
-    from mira_tpu_torch.workloads.poseidon import BN254_G1, GRUMPKIN
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
 
     for curve in (BN254_G1, GRUMPKIN):
         ops = jacobian_ops(curve.name)
@@ -254,7 +370,7 @@ def check_fixed_small(torch, dev, rng):
         msm_fixed_plain,
         precompute_fixed_table_plain,
     )
-    from mira_tpu_torch.workloads.poseidon import BN254_G1, GRUMPKIN
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
 
     for curve in (BN254_G1, GRUMPKIN):
         ops = jacobian_ops(curve.name)
@@ -317,16 +433,33 @@ def launch_counts():
     from mira_tpu_torch.ops import cuda_msm
     from mira_tpu_torch.polynomial import fold_evaluator as fe
 
+    from mira_tpu_torch.ops import cuda_ntt, cuda_poseidon
+
     return {"msm_bucket": cuda_msm.launches, "msm_fixed": cuda_msm.fixed_launches,
-            "fixed_table": cuda_msm.table_launches, "fold_eval": fe.launches}
+            "fixed_table": cuda_msm.table_launches, "fold_eval": fe.launches,
+            "ntt_fourstep": cuda_ntt.fourstep_launches,
+            "ntt_stage": cuda_ntt.stage_launches,
+            "poseidon": cuda_poseidon.launches}
+
+
+def require_launched(counts: dict, names, path: str):
+    """Fail unless every kernel of `names` was launched on `path`."""
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels of {path} were not launched: {missing} "
+                             f"(counts {counts})")
 
 
 def reset_launch_counts():
     from mira_tpu_torch.ops import cuda_msm
     from mira_tpu_torch.polynomial import fold_evaluator as fe
 
+    from mira_tpu_torch.ops import cuda_ntt, cuda_poseidon
+
     cuda_msm.launches = cuda_msm.fixed_launches = cuda_msm.table_launches = 0
     fe.launches = 0
+    cuda_ntt.fourstep_launches = cuda_ntt.stage_launches = 0
+    cuda_poseidon.launches = 0
 
 
 def fixed_checks(torch, dev, rng, ck, shapes, path):
@@ -369,9 +502,9 @@ def fixed_timings(torch, dev, rng, curve, points, window, reps=5):
     log(f"n={n} w={window} {curve.name}: fixed_table {tab_ms:.3f} ms (plain "
         f"{tab_plain_ms:.3f} ms), msm_fixed {ms:.3f} ms (plain {plain_ms:.3f} ms)")
     return ({"n": n, "window": window, "ms": ms, "plain_ms": plain_ms,
-             "max_abs_err": err},
+             "max_abs_err": err, **msm_fixed_bound(n, window, curve)},
             {"n": n, "window": window, "ms": tab_ms, "plain_ms": tab_plain_ms,
-             "max_abs_err": tab_err})
+             "max_abs_err": tab_err, **fixed_table_bound(n, window, curve)})
 
 
 def run_snarkstar(torch, dev):
@@ -401,8 +534,7 @@ def run_snarkstar(torch, dev):
     log("snarkstar host span tree (zero step, fold steps, decider):")
     log(tracing.report(min_runtime=0.05))
     log(f"snarkstar peak device memory: {peak / 2**30:.3f} GiB")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the SnarkStar path was not launched: {counts}")
+    require_launched(counts, MSM_PATH_KERNELS, "the SnarkStar path")
     return counts, secs
 
 
@@ -485,6 +617,385 @@ def _random_plain(rng, n, dev):
     return torch.from_numpy(w.view(np.int32)).to(dev)
 
 
+def _field_vals(rng, n, p):
+    """n field values below p from the seeded generator, with 0, p - 1 and a
+    repeated value among them."""
+    vals = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+    edge = [0, p - 1, 1, p - 1]
+    vals[: min(n, 4)] = edge[: min(n, 4)]
+    if n > 8:
+        vals[7] = vals[5]
+    return vals
+
+
+def check_ntt_small(torch, dev, rng):
+    """`ntt` on the card against `ntt_host` and `ntt_plain` for every log n
+    in 1..14 over BN254 Fr (and log n = 1 over Fq, whose 2-adicity is 1), both
+    engines where the size admits them, forward and inverse; the reference's
+    known-answer vector (src/fft.rs:239-258); coset round trips."""
+    from mira_tpu_torch.fields.limbs import limb_field
+    from mira_tpu_torch.fields.params import BN254_FQ, BN254_FR
+    from mira_tpu_torch.ops import cuda_ntt, ntt
+
+    cases = [(BN254_FR, k) for k in range(1, 15)] + [(BN254_FQ, 1)]
+    for p, log_n in cases:
+        lf = limb_field(p)
+        vals = _field_vals(rng, 1 << log_n, p)
+        a = lf.encode(vals, dev)
+        for inverse in (False, True):
+            want = ntt.ntt_plain(a, p, inverse)
+            if lf.decode(want) != ntt.ntt_host(vals, p, inverse):
+                raise AssertionError(f"ntt_plain 2^{log_n} != ntt_host")
+            engines = ["stage", "auto"]
+            if log_n >= cuda_ntt.FOURSTEP_MIN_LOG:
+                engines.append("fourstep")
+            for engine in engines:
+                got = ntt.ntt(a, p, inverse, engine=engine)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"ntt 2^{log_n} engine={engine} inverse={inverse}: "
+                        f"kernel != plain on {(got != want).any(-1).sum()} rows")
+        if log_n in (4, 9, 12, 13):
+            for engine in ("stage", "fourstep"):
+                back = ntt.coset_intt(ntt.coset_ntt(a, p, engine), p, engine)
+                if not torch.equal(back, a):
+                    raise AssertionError(f"coset round trip 2^{log_n} {engine}")
+    lf = limb_field(BN254_FR)
+    known = [
+        28,
+        68918385373930674424918168212551896122229959265833979749191472831399925654,
+        17631683881184975370165255887551781615748388533673675138856,
+        68918385373930639161550405842601155791718184162270748252414405484049647934,
+        21888242871839275222246405745257275088548364400416034343698204186575808495613,
+        21819324486465344583084855339414673932756646216253763595445789781091758847675,
+        21888242871839275204614721864072299718383108512864252727949815652902133356753,
+        21819324486465344547821487577044723192426134441150200363949012713744408569955,
+    ]
+    for engine in ("stage", "fourstep"):
+        got = lf.decode(ntt.ntt(lf.encode(list(range(8)), dev), BN254_FR,
+                                engine=engine))
+        if got != known:
+            raise AssertionError(f"ntt known-answer vector, engine={engine}")
+    log("ntt_stage, ntt_fourstep at log n = 1..14 (0, p - 1, repeated values; "
+        "forward, inverse, coset round trips; the known-answer vector): kernel "
+        "== plain == host (exact)")
+
+
+def host_sponge(vals, modulus, t, rate, r_f=10, r_p=10) -> int:
+    """The host sponge's state[1] before bit truncation (ops/poseidon.py)."""
+    from mira_tpu_torch.fields.host import field
+    from mira_tpu_torch.ops.poseidon import PoseidonHash, get_spec
+
+    F = field(modulus)
+    h = PoseidonHash(get_spec(modulus, t, rate, r_f, r_p))
+    h.update([F(v) for v in vals])
+    buf, h.buf = h.buf, []
+    for j in range(0, len(buf), rate):
+        h.permutation(buf[j : j + rate])
+    if len(buf) % rate == 0:
+        h.permutation([])
+    return h.state[1].v
+
+
+def check_poseidon_small(torch, dev, rng):
+    """`poseidon_hash_batch` on the card against the host sponge and the
+    plain version for the (t, rate, L) cases of the reference's tests (and
+    t = 2, t = 4 and an empty input), N not a multiple of the block."""
+    from mira_tpu_torch.fields.limbs import limb_field
+    from mira_tpu_torch.fields.params import BN254_FQ, BN254_FR
+    from mira_tpu_torch.ops.poseidon_device import (
+        poseidon_hash_batch,
+        poseidon_hash_batch_plain,
+    )
+
+    n = 131
+    cases = [(BN254_FR, 3, 2, 2), (BN254_FR, 3, 2, 3), (BN254_FR, 5, 4, 4),
+             (BN254_FR, 5, 4, 6), (BN254_FR, 2, 1, 1), (BN254_FR, 3, 2, 0),
+             (BN254_FR, 4, 3, 7), (BN254_FQ, 5, 4, 6)]
+    for p, t, rate, length in cases:
+        lf = limb_field(p)
+        vals = [_field_vals(rng, length, p) if i else [p - 1] * length
+                for i in range(n)]
+        flat = lf.encode([v for row in vals for v in row], dev).reshape(
+            n, length, 8)
+        got = poseidon_hash_batch(flat, p, t=t, rate=rate)
+        torch.cuda.synchronize()
+        want = poseidon_hash_batch_plain(flat, p, t=t, rate=rate)
+        if not torch.equal(got, want):
+            raise AssertionError(f"poseidon t={t} L={length}: kernel != plain")
+        host = [host_sponge(v, p, t, rate) for v in vals[:8]]
+        if lf.decode(got[:8]) != host:
+            raise AssertionError(f"poseidon t={t} L={length}: kernel != host")
+    log(f"poseidon at (t, rate, L) = {[c[1:] for c in cases]}, N = {n}: kernel "
+        "== plain == host sponge (exact)")
+
+
+def words_err(got, want) -> int:
+    """max |a - b| over two tensors of canonical words (0 iff equal)."""
+    return int((got.long() - want.long()).abs().max())
+
+
+def run_ntt_path(torch, dev, rng):
+    """The NTT at full size over BN254 Fr through its entry points.  Returns
+    the per-size results of both kernels."""
+    from mira_tpu_torch.fields.limbs import limb_field
+    from mira_tpu_torch.fields.params import BN254_FR, field_params
+    from mira_tpu_torch.ops import cuda_ntt, ntt
+
+    p = BN254_FR
+    lf = limb_field(p)
+    four, stage = [], []
+    # both engines around the size where "auto" changes from the stage kernel
+    # to the four-step kernel (ops/ntt.py FOURSTEP_MIN)
+    switch = []
+    for log_n in NTT_SWITCH_SIZES:
+        a = lf.from_plain(_random_plain(rng, 1 << log_n, dev))
+        if not torch.equal(ntt.ntt(a, p, engine="fourstep"),
+                           ntt.ntt(a, p, engine="stage")):
+            raise AssertionError(f"ntt 2^{log_n}: the engines disagree")
+        switch.append({
+            "log_n": log_n,
+            "fourstep_ms": timed_cuda(lambda: ntt.ntt(a, p, engine="fourstep"), 50),
+            "stage_ms": timed_cuda(lambda: ntt.ntt(a, p, engine="stage"), 50)})
+    log(f"ntt engines around FOURSTEP_MIN = {ntt.FOURSTEP_MIN} (means of 50 "
+        f"calls): {json.dumps(switch)}")
+    for log_n in NTT_SIZES:
+        n = 1 << log_n
+        a = lf.from_plain(_random_plain(rng, n, dev))
+        torch.cuda.reset_peak_memory_stats()
+        # a transform of under a millisecond is timed over more calls, so that
+        # one slow launch on a busy host does not decide the mean
+        reps = 20 if log_n <= NTT_PLAIN_MAX else 5
+        ms = timed_cuda(lambda: ntt.ntt(a, p), reps)  # "auto": four-step here
+        entry = {"log_n": log_n, "ms": ms, "plain_ms": None,
+                 **bound(2 * n * 32, ntt_products(log_n))}
+        if log_n <= NTT_PLAIN_MAX:
+            want, entry["plain_ms"] = timed_once(lambda: ntt.ntt_plain(a, p))
+            entry["max_abs_err"] = words_err(ntt.ntt(a, p), want)
+            ms_s = timed_cuda(lambda: ntt.ntt(a, p, engine="stage"), reps)
+            err_s = words_err(ntt.ntt(a, p, engine="stage"), want)
+            inv = ntt.ntt(want, p, inverse=True)
+            err_i = max(words_err(inv, a),
+                        words_err(ntt.ntt(want, p, True, engine="stage"), a))
+            stage.append({"log_n": log_n, "what": "whole transform",
+                          "launches_per_call": log_n, "ms": ms_s,
+                          "plain_ms": entry["plain_ms"],
+                          "max_abs_err": max(err_s, err_i),
+                          **bound(2 * n * 32, ntt_products(log_n))})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err_i)
+            del want, inv
+        else:
+            # the plain version's int64 limbs would take gigabytes per
+            # temporary: round trips, and spot values of a sparse input
+            # against a host evaluation
+            b = ntt.ntt(a, p)
+            err = words_err(ntt.ntt(b, p, inverse=True), a)
+            del b
+            err = max(err, words_err(ntt.coset_intt(ntt.coset_ntt(a, p), p), a))
+            nz = sorted(int(i) for i in rng.choice(n, size=300, replace=False))
+            coeffs = _field_vals(rng, len(nz), p)
+            sparse = lf.zero((n,), dev).clone()
+            sparse[torch.tensor(nz, device=dev)] = lf.encode(coeffs, dev)
+            out_idx = [int(i) for i in rng.choice(n, size=64, replace=False)]
+            w = ntt.get_omega(p, log_n)
+            got = lf.decode(ntt.ntt(sparse, p)[torch.tensor(out_idx, device=dev)])
+            want = [sum(c * pow(w, i * k % n, p) for i, c in zip(nz, coeffs)) % p
+                    for k in out_idx]
+            err = max(err, max_abs_err(got, want))
+            zeta = field_params(p).zeta
+            got = lf.decode(ntt.coset_ntt(sparse, p)[
+                torch.tensor(out_idx, device=dev)])
+            want = [sum(c * pow(zeta, i % 3, p) * pow(w, i * k % n, p)
+                        for i, c in zip(nz, coeffs)) % p for k in out_idx]
+            entry["max_abs_err"] = max(err, max_abs_err(got, want))
+            del sparse
+        entry["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if entry["max_abs_err"]:
+            raise AssertionError(f"ntt 2^{log_n}: kernel != reference")
+        four.append(entry)
+        log(f"ntt 2^{log_n}: four-step {ms:.3f} ms"
+            + (f", stage engine {stage[-1]['ms']:.3f} ms, plain "
+               f"{entry['plain_ms']:.1f} ms" if log_n <= NTT_PLAIN_MAX else
+               " (round trips, coset round trips and 2 x 64 spot values of a "
+               "300-term input exact)")
+            + f"; bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}; "
+            f"peak {entry['peak_gib']:.3f} GiB")
+        if log_n == NTT_PLAIN_MAX:  # one stage alone: a middle one, in place
+            tw = ntt._twiddle_table(p, log_n, False, str(dev))
+            scratch = a.clone()
+            half = 1 << (log_n // 2)
+            want1, plain1 = timed_once(lambda: ntt.stage_plain(a, tw, half, p))
+            err1 = words_err(cuda_ntt.stage_cuda(a, tw, half, p), want1)
+            ms1 = timed_cuda(
+                lambda: cuda_ntt.stage_cuda(scratch, tw, half, p, out=scratch), 20)
+            if err1:
+                raise AssertionError(f"ntt_stage at 2^{log_n}: kernel != plain")
+            stage.append({"log_n": log_n, "what": f"one stage (half = 2^{log_n // 2})",
+                          "launches_per_call": 1, "ms": ms1, "plain_ms": plain1,
+                          "max_abs_err": err1, **bound(2 * n * 32, n // 2)})
+            log(f"ntt_stage 2^{log_n}, one stage: {ms1:.4f} ms (plain {plain1:.1f} ms); "
+                f"bound {stage[-1]['bound_ms']:.4f} ms by {stage[-1]['bound_by']}")
+            del scratch, want1
+        del a
+    four[0]["engines_near_switch"] = switch
+    return four, stage
+
+
+def run_poseidon_path(torch, dev, rng):
+    """2-to-1 hashes (t = 3, rate = 2, r_f = r_p = 10) at full size through
+    `poseidon_hash_batch`, and a Merkle tree of 2^20 leaves reduced level by
+    level on the card."""
+    from mira_tpu_torch.fields.limbs import limb_field
+    from mira_tpu_torch.fields.params import BN254_FR
+    from mira_tpu_torch.ops.poseidon_device import (
+        poseidon_hash_batch,
+        poseidon_hash_batch_plain,
+    )
+
+    p = BN254_FR
+    lf = limb_field(p)
+    results = []
+    for log_n in POSEIDON_SIZES:
+        n = 1 << log_n
+        pairs = lf.from_plain(_random_plain(rng, 2 * n, dev)).reshape(n, 2, 8)
+        ms = timed_cuda(lambda: poseidon_hash_batch(pairs, p), 5)
+        got = poseidon_hash_batch(pairs, p)
+        want, plain_ms = timed_once(lambda: poseidon_hash_batch_plain(pairs, p))
+        err = words_err(got, want)
+        lanes = [int(i) for i in rng.choice(n, size=min(256, n), replace=False)]
+        sel = torch.tensor(lanes, device=dev)
+        ins = lf.decode(pairs[sel].reshape(-1, 8))
+        host = [host_sponge(ins[2 * i : 2 * i + 2], p, 3, 2)
+                for i in range(len(lanes))]
+        err = max(err, max_abs_err(lf.decode(got[sel]), host))
+        if err:
+            raise AssertionError(f"poseidon 2^{log_n}: kernel != plain or host")
+        b = bound(n * 3 * 32, n * poseidon_products(3, 10, 10, 2))
+        results.append({"log_n": log_n, "ms": ms, "plain_ms": plain_ms,
+                        "max_abs_err": err, **b})
+        log(f"poseidon 2^{log_n} 2-to-1 hashes: {ms:.3f} ms (plain {plain_ms:.1f} "
+            f"ms; 256 lanes == host sponge); bound {b['bound_ms']:.3f} ms by "
+            f"{b['bound_by']}")
+        del want
+
+    def root(leaves, hash_fn):
+        level = leaves
+        while level.shape[0] > 1:
+            level = hash_fn(level.reshape(level.shape[0] // 2, 2, 8), p)
+        return level
+
+    log_leaves = POSEIDON_SIZES[-1]
+    leaves = pairs.reshape(-1, 8)[: 1 << log_leaves]
+    tree_ms = timed_cuda(lambda: root(leaves, poseidon_hash_batch), 3)
+    got = root(leaves, poseidon_hash_batch)
+    want, tree_plain_ms = timed_once(lambda: root(leaves, poseidon_hash_batch_plain))
+    small = leaves[: 1 << 10]
+    level = lf.decode(small)
+    while len(level) > 1:
+        level = [host_sponge(level[i : i + 2], p, 3, 2)
+                 for i in range(0, len(level), 2)]
+    err = max(words_err(got, want),
+              max_abs_err(lf.decode(root(small, poseidon_hash_batch)), level))
+    if err:
+        raise AssertionError("poseidon Merkle root: kernel != plain or host")
+    hashes = (1 << log_leaves) - 1
+    b = bound(hashes * 3 * 32, hashes * poseidon_products(3, 10, 10, 2))
+    results.append({"what": f"Merkle root of 2^{log_leaves} leaves",
+                    "launches_per_call": log_leaves, "ms": tree_ms,
+                    "plain_ms": tree_plain_ms, "max_abs_err": err, **b})
+    log(f"poseidon Merkle root of 2^{log_leaves} leaves ({log_leaves} launches): "
+        f"{tree_ms:.3f} ms (plain {tree_plain_ms:.1f} ms); == plain, and the "
+        f"2^10-leaf root == host sponge; bound {b['bound_ms']:.3f} ms")
+    return results
+
+
+def primary_step_trace(pp, step_circuit, z_0, ro_nark, pg_pp):
+    """A satisfying trace of the primary step-folding circuit at k=17: the
+    IVC's zero step (ivc/ivc.py) for the start value `z_0`, synthesised by
+    CircuitRunner and committed with the path's 2^21 key."""
+    from mira_tpu_torch.curves.host import Tuple12
+    from mira_tpu_torch.fields.host import field
+    from mira_tpu_torch.ivc.instance_computation import compute_instance_hash
+    from mira_tpu_torch.ivc.step_folding_circuit import StepFoldingCircuit, StepInputs
+    from mira_tpu_torch.nifs.protogalaxy import ProtoGalaxy
+    from mira_tpu_torch.ops.poseidon import PoseidonHash
+    from mira_tpu_torch.table.runner import CircuitRunner
+
+    p_mod = pp.primary_curve.scalar_modulus
+    sec = pp.secondary_initial_plonk_trace
+    sec_relaxed = sec.to_relax(pp.secondary.k)
+    z_out = step_circuit.process_step(z_0, pp.primary.k, p_mod)
+    instance = [
+        sec.u.instance[1] % p_mod,
+        compute_instance_hash(
+            PoseidonHash(pp.primary.params.ro_spec), pp.digest_2, 1, z_0, z_out,
+            sec_relaxed.U, pp.limb_width, pp.limbs_count),
+    ]
+    one = Tuple12.one(field(pp.secondary_curve.base_modulus))
+    sfc = StepFoldingCircuit(step_circuit, StepInputs(
+        step=0, step_pp=pp.primary.params, public_params_hash=pp.digest_2,
+        z_0=list(z_0), z_i=list(z_0), U=sec_relaxed.U, u=sec.u,
+        cross_term_commits=[
+            type(pp.digest_2).identity(pp.secondary_curve)
+            for _ in range(pp.secondary.S.get_degree_for_folding() - 1)],
+        cross_term_gt_commits=[
+            one for _ in range(pp.secondary.S.target_group_cross_terms)]))
+    witness = CircuitRunner(pp.primary.k, sfc, instance,
+                            pp.primary_curve).collect_witness()
+    return ProtoGalaxy.generate_plonk_trace(pp.primary.ck, instance, witness,
+                                            pg_pp, ro_nark)
+
+
+def run_protogalaxy_path(torch, dev, pp, step_circuit):
+    """ProtoGalaxy at full width on the card: the k=17 path's primary
+    structure and key, PG_TRACES traces per fold, two folds.  Each fold
+    counts only if the verifier's (betas', e, U) equal the prover's and the
+    folded trace satisfies the accumulator relation."""
+    from mira_tpu_torch.nifs.protogalaxy import ProtoGalaxy
+    from mira_tpu_torch.ops.poseidon import PoseidonHash
+
+    S, ck = pp.primary.S, pp.primary.ck
+
+    def ro():  # the transcript over the key curve's base field, as the IVC's
+        return PoseidonHash(pp.secondary.params.ro_spec)
+
+    pg_pp, vp = ProtoGalaxy.setup_params(pp.digest_1, S)
+    t0 = time.perf_counter()
+    ro_nark = ro()  # one running NARK transcript over the traces
+    traces = [primary_step_trace(pp, step_circuit, [z], ro_nark, pg_pp)
+              for z in range(PG_TRACES)]
+    torch.cuda.synchronize()
+    log(f"protogalaxy: {PG_TRACES} traces of the k={S.k} step-folding circuit "
+        f"({len(S.gates)} gates, rounds {S.round_sizes}): "
+        f"{time.perf_counter() - t0:.3f} s")
+    acc = ProtoGalaxy.new_accumulator(S, pg_pp, ro(), dev)
+    prove_secs, prove_counts = [], []
+    for fold in range(2):
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        new_acc, proof = ProtoGalaxy.prove(ck, pg_pp, ro(), acc, traces)
+        torch.cuda.synchronize()
+        prove_secs.append(time.perf_counter() - t0)
+        after = launch_counts()
+        prove_counts.append({k: after[k] - before[k] for k in after})
+        betas_v, e_v, U_v = ProtoGalaxy.verify(
+            vp, ro(), ro(), acc, [t.u for t in traces], proof)
+        if (betas_v, e_v) != (new_acc.betas, new_acc.e) or U_v != new_acc.trace.U:
+            raise AssertionError(f"protogalaxy fold {fold + 1}: verifier != prover")
+        t0 = time.perf_counter()
+        if ProtoGalaxy.compute_F(new_acc.betas, 0, S, new_acc.trace).eval(0) != new_acc.e:
+            raise AssertionError(f"protogalaxy fold {fold + 1}: the folded trace "
+                                 "does not satisfy F(betas', 0)(0) == e'")
+        log(f"protogalaxy fold {fold + 1}: prove {prove_secs[-1]:.3f} s, launches "
+            f"during it {prove_counts[-1]}; verifier == prover; F(betas', 0)(0) "
+            f"== e' (checked in {time.perf_counter() - t0:.3f} s); poly_F zero: "
+            f"{all(c == 0 for c in proof.poly_F)}, e' zero: {new_acc.e == 0}")
+        acc = new_acc
+    return prove_secs, prove_counts
+
+
 def profile_fold_step(torch, ivc, out_dir: str):
     """One more fold step under torch.profiler.  Prints the step's wall time,
     the device's busy time (the union of device-event intervals) and its
@@ -544,6 +1055,8 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository "
               "(mira_tpu_torch not found)", file=sys.stderr)
         return 2
+    import gc
+
     import numpy as np
 
     from mira_tpu_torch import _build
@@ -555,12 +1068,9 @@ def main() -> int:
     from mira_tpu_torch.polynomial import fold_evaluator as fe
     from mira_tpu_torch.utils import tracing
     from mira_tpu_torch.workloads import snarkstar
-    from mira_tpu_torch.workloads.poseidon import (
-        BN254_G1,
-        GRUMPKIN,
-        PoseidonStepCircuit,
-        TrivialCircuit,
-    )
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
+    from mira_tpu_torch.ivc.step_circuit import TrivialCircuit
+    from mira_tpu_torch.workloads.poseidon import PoseidonStepCircuit
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -587,7 +1097,26 @@ def main() -> int:
     check_field_kernels(torch, dev, rng)
     check_msm_small(torch, dev, rng)
     check_fixed_small(torch, dev, rng)
+    check_ntt_small(torch, dev, rng)
+    check_poseidon_small(torch, dev, rng)
     phase("kernel_checks_small", t0)
+
+    # -- the NTT and Poseidon paths need no key: they run while the keys are made
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    ntt_four, ntt_stage = run_ntt_path(torch, dev, rng)
+    ntt_counts = launch_counts()
+    log(f"launches over the NTT path: {ntt_counts}")
+    require_launched(ntt_counts, ("ntt_fourstep", "ntt_stage"), "the NTT path")
+    phase("ntt_path", t0)
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    poseidon_at = run_poseidon_path(torch, dev, rng)
+    poseidon_counts = launch_counts()
+    log(f"launches over the Poseidon path: {poseidon_counts}")
+    require_launched(poseidon_counts, ("poseidon",), "the Poseidon path")
+    phase("poseidon_path", t0)
 
     t0 = time.perf_counter()
     for (_, k, label), fut in zip(key_specs[:2], keygen):
@@ -636,8 +1165,7 @@ def main() -> int:
     log(f"peak device memory over the fold steps: {peak / 2**30:.3f} GiB")
     log(f"tables (lanes, window): {ck1.table_shapes()} / {ck2.table_shapes()}, "
         f"not fitting {ck1.fb_skipped + ck2.fb_skipped}")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path was not launched: {counts}")
+    require_launched(counts, MSM_PATH_KERNELS, "the k=17 path")
 
     t0 = time.perf_counter()
     ivc.verify(strict=True)
@@ -663,7 +1191,8 @@ def main() -> int:
         "source": "mira_tpu_torch/csrc/msm_bucket.cu",
         "replaces": "mira_tpu/ops/pallas_msm.py:781",
         "launches": counts["msm_bucket"], "max_abs_err": err,
-        "ms": ms_k, "plain_ms": ms_p,
+        "ms": ms_k, "plain_ms": ms_p, **msm_bucket_bound(n, BN254_G1),
+        "library_ms": None,
         "shape": f"N=2^{K} bn254, full-width scalars",
     })
     ev, fops, ops_t, n_regs, consts, w1, w2, ch, jm, js = fe_state
@@ -688,6 +1217,9 @@ def main() -> int:
         "replaces": "mira_tpu/polynomial/pallas_evaluator.py:323",
         "launches": counts["fold_eval"], "max_abs_err": err,
         "ms": ms_k, "plain_ms": ms_p,
+        **fold_eval_bound(fops, ev.static_stack.shape[0], w1.shape[0], 1 << K,
+                          len(js) - 2),
+        "library_ms": None,
         "shape": f"nrow=2^{K}, {len(js) - 2} fold points, {len(fops)} ops",
     })
     # the fixed-base kernels at every table shape of the k=17 steps: the
@@ -711,6 +1243,8 @@ def main() -> int:
         "launches": counts["msm_fixed"],
         "max_abs_err": max(m["max_abs_err"] for m in msm_at),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
         "shape": f"N={head['n']} (the k={K} delta width) {head['curve']}, "
                  f"w={head['window']}", "at": msm_at,
     })
@@ -721,9 +1255,74 @@ def main() -> int:
         "launches": counts["fixed_table"],
         "max_abs_err": max(t["max_abs_err"] for t in tab_at),
         "ms": tab_at[0]["ms"], "plain_ms": tab_at[0]["plain_ms"],
+        "bound_ms": tab_at[0]["bound_ms"], "bound_by": tab_at[0]["bound_by"],
+        "library_ms": None,
         "shape": f"N={head['n']} {head['curve']}, w={head['window']}", "at": tab_at,
     })
     phase("kernel_timing", t0)
+
+    # -- ProtoGalaxy at k=17 on the path's structure and key ---------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tracing.reset()
+    pg_secs, pg_prove_counts = run_protogalaxy_path(torch, dev, pp, sc1)
+    pg_counts = launch_counts()
+    pg_peak = torch.cuda.max_memory_allocated()
+    log("host spans of the ProtoGalaxy path (traces, two proves, checks), "
+        "[count, seconds] by name: "
+        + json.dumps({k: [c, round(t, 3)] for k, (c, t) in tracing.totals().items()}))
+    log(f"protogalaxy prove (s): {pg_secs}; launches over the path: {pg_counts}; "
+        f"peak device memory {pg_peak / 2**30:.3f} GiB")
+    require_launched(pg_counts, ("msm_bucket", "ntt_stage"), "the ProtoGalaxy path")
+    phase("protogalaxy_path", t0)
+
+    # the three kernels of the polynomial and hashing side: no PyTorch call
+    # computes a BN254 NTT or Poseidon hash, so there is no library time
+    head4 = next(e for e in ntt_four if e["log_n"] == NTT_PLAIN_MAX)
+    kernels.append({
+        "name": "ntt_fourstep", "route": "cuda",
+        "source": "mira_tpu_torch/csrc/ntt_fourstep.cu",
+        "replaces": "mira_tpu/ops/ntt.py:426",
+        "launches": ntt_counts["ntt_fourstep"],
+        "max_abs_err": max(e["max_abs_err"] for e in ntt_four),
+        "ms": head4["ms"], "plain_ms": head4["plain_ms"],
+        "bound_ms": head4["bound_ms"], "bound_by": head4["bound_by"],
+        "library_ms": None, "shape": f"n=2^{NTT_PLAIN_MAX} over BN254 Fr, forward",
+        "at": ntt_four,
+    })
+    head9 = next(e for e in ntt_stage if e["launches_per_call"] == 1)
+    kernels.append({
+        "name": "ntt_stage", "route": "cuda",
+        "source": "mira_tpu_torch/csrc/ntt_stage.cu",
+        "replaces": "mira_tpu/ops/ntt.py:120",
+        "launches": ntt_counts["ntt_stage"],
+        "launches_protogalaxy": pg_counts["ntt_stage"],
+        "launches_per_prove": [c["ntt_stage"] for c in pg_prove_counts],
+        "max_abs_err": max(e["max_abs_err"] for e in ntt_stage),
+        "ms": head9["ms"], "plain_ms": head9["plain_ms"],
+        "bound_ms": head9["bound_ms"], "bound_by": head9["bound_by"],
+        "library_ms": None,
+        "shape": f"one stage of n=2^{NTT_PLAIN_MAX} over BN254 Fr",
+        "at": ntt_stage,
+    })
+    head10 = next(e for e in poseidon_at if e.get("log_n") == POSEIDON_SIZES[-1])
+    kernels.append({
+        "name": "poseidon", "route": "cuda",
+        "source": "mira_tpu_torch/csrc/poseidon.cu",
+        "replaces": "mira_tpu/ops/pallas_poseidon.py:229",
+        "launches": poseidon_counts["poseidon"],
+        "max_abs_err": max(e["max_abs_err"] for e in poseidon_at),
+        "ms": head10["ms"], "plain_ms": head10["plain_ms"],
+        "bound_ms": head10["bound_ms"], "bound_by": head10["bound_by"],
+        "library_ms": None,
+        "shape": f"N=2^{POSEIDON_SIZES[-1]} 2-to-1 hashes, t=3 rate=2 r_f=r_p=10, "
+                 "BN254 Fr",
+        "at": poseidon_at,
+    })
+    kernels[0]["launches_protogalaxy"] = pg_counts["msm_bucket"]
 
     if args.profile:
         t0 = time.perf_counter()
@@ -741,7 +1340,8 @@ def main() -> int:
     snark_counts, report = run_snarkstar(torch, dev)
     phase("snarkstar", t0)
     for k in kernels:
-        k["launches_snarkstar"] = snark_counts[k["name"]]
+        if k["name"] in MSM_PATH_KERNELS:
+            k["launches_snarkstar"] = snark_counts[k["name"]]
 
     # the kernels at SnarkStar's shapes: its tables (the k=19 delta widths
     # and cross-term widths, both curves) and its fold evaluators over 2^19
@@ -758,13 +1358,13 @@ def main() -> int:
         kernels[1].setdefault("at", []).append(
             {"path": "snarkstar", "curve": side.ck.curve.name, "nrow": 1 << side.S.k,
              "max_abs_err": 0})
-    for k in kernels[2:]:
+    for k in kernels[2:4]:
         k["max_abs_err"] = max(a["max_abs_err"] for a in k["at"])
     del pp_s, report, side
     phase("snarkstar_kernel_checks", t0)
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    if "jax" in sys.modules or "mira_tpu" in sys.modules:
+        raise AssertionError("jax or mira_tpu was imported")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

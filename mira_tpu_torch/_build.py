@@ -42,6 +42,9 @@ _SIGNATURES = {
                        _P],
     "mira_msm_fixed": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "mira_fixed_table": [_I, _P, _P, _P, _I, _I, _P, _P],
+    "mira_ntt_stage": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
+    "mira_ntt_fourstep": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "mira_poseidon": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
 }
 
 
@@ -116,7 +119,7 @@ def field_id(modulus: int) -> int:
     """The kernels' `field` argument for a base-field modulus: 0 for BN254
     Fq (G1), 1 for BN254 Fr (Grumpkin).  Any other modulus raises, since
     the kernels know only these two."""
-    from mira_tpu.fields.params import BN254_FQ, BN254_FR
+    from .fields.params import BN254_FQ, BN254_FR
 
     ids = {BN254_FQ: 0, BN254_FR: 1}
     if modulus not in ids:

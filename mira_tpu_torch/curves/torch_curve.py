@@ -14,8 +14,8 @@ from functools import lru_cache
 
 import torch
 
-from mira_tpu.curves.host import BN254_G1, GRUMPKIN, AffinePoint, CurveParams
-from mira_tpu.fields.host import field
+from ..curves.host import BN254_G1, GRUMPKIN, AffinePoint, CurveParams
+from ..fields.host import field
 
 from ..fields.limbs import NUM_WORDS, Lz, limb_field, words_to_ints
 

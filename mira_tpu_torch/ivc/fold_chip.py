@@ -16,15 +16,15 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple
 
-from mira_tpu.curves.host import AffinePoint, G2Point, Tuple12
-from mira_tpu.fields.host import field
-from mira_tpu.gadgets.bignum import BigUintMulModChip, OverflowingBigUint
-from mira_tpu.gadgets.ecc import AssignedEccPoint, EccChip
-from mira_tpu.gadgets.fp12_chip import AssignedG2Point, AssignedTuple12, Fp12Chip, G2EccChip
-from mira_tpu.gadgets.main_gate import CyclicAssigner, MainGate, MainGateConfig
+from ..curves.host import AffinePoint, G2Point, Tuple12
+from ..fields.host import field
+from ..gadgets.bignum import BigUintMulModChip, OverflowingBigUint
+from ..gadgets.ecc import AssignedEccPoint, EccChip
+from ..gadgets.fp12_chip import AssignedG2Point, AssignedTuple12, Fp12Chip, G2EccChip
+from ..gadgets.main_gate import CyclicAssigner, MainGate, MainGateConfig
 from ..plonk.structure import PlonkInstance, RelaxedPlonkInstance
-from mira_tpu.table.circuit import AssignedValue, RegionCtx
-from mira_tpu.constants import NUM_CHALLENGE_BITS
+from ..table.circuit import AssignedValue, RegionCtx
+from ..constants import NUM_CHALLENGE_BITS
 
 
 @dataclasses.dataclass
@@ -93,7 +93,7 @@ class AssignedRelaxedPlonkInstance:
 
     def to_relaxed_plonk_instance(self, curve, limb_width: int, limbs_count: int) -> RelaxedPlonkInstance:
         """Read back host-side values (for off/on-circuit consistency tests)."""
-        from mira_tpu.gadgets.bignum import limbs_to_int_bn
+        from ..gadgets.bignum import limbs_to_int_bn
 
         Fb = field(curve.base_modulus)
 
@@ -103,7 +103,7 @@ class AssignedRelaxedPlonkInstance:
             return AffinePoint(curve, Fb(p.x.value), Fb(p.y.value))
 
         def g2pt(p: AssignedG2Point) -> G2Point:
-            from mira_tpu.curves.host import Fq2
+            from ..curves.host import Fq2
 
             if all(v.value == 0 for v in (*p.x, *p.y)):
                 return G2Point.identity()

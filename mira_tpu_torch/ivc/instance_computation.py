@@ -12,10 +12,10 @@ from __future__ import annotations
 
 from typing import List
 
-from mira_tpu.constants import NUM_CHALLENGE_BITS
-from mira_tpu.fields.host import field
-from mira_tpu.gadgets.bignum import int_to_bn_limbs
-from mira_tpu.gadgets.main_gate import MainGate, MainGateConfig
+from ..constants import NUM_CHALLENGE_BITS
+from ..fields.host import field
+from ..gadgets.bignum import int_to_bn_limbs
+from ..gadgets.main_gate import MainGate, MainGateConfig
 from ..plonk.structure import RelaxedPlonkInstance
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
-from mira_tpu.ops.poseidon import PoseidonHash
+from ..ops.poseidon import PoseidonHash
 from ..utils.tracing import instrument, span
 from ..nifs.vanilla import VanillaFS
 from ..plonk.structure import PlonkTrace, RelaxedPlonkTrace, SatError
@@ -25,7 +25,7 @@ from ..table.mock import mock_check
 from ..table.runner import CircuitRunner
 from .instance_computation import compute_instance_hash
 from .public_params import NUM_IO, PublicParams
-from mira_tpu.ivc.step_circuit import StepCircuit
+from ..ivc.step_circuit import StepCircuit
 from .step_folding_circuit import StepFoldingCircuit, StepInputs
 
 
@@ -34,8 +34,8 @@ class VerificationError(Exception):
 
 
 def _one_tuple12(curve):
-    from mira_tpu.curves.host import Tuple12
-    from mira_tpu.fields.host import field
+    from ..curves.host import Tuple12
+    from ..fields.host import field
 
     return Tuple12.one(field(curve.base_modulus))
 

@@ -15,17 +15,17 @@ import hashlib
 import json
 from typing import List, Optional
 
-from mira_tpu.constants import NUM_HASH_BITS
-from mira_tpu.curves.host import AffinePoint, CurveParams
-from mira_tpu.fields.host import field
+from ..constants import NUM_HASH_BITS
+from ..curves.host import AffinePoint, CurveParams
+from ..fields.host import field
 from ..ops.commitment import CommitmentKey
-from mira_tpu.ops.poseidon import PoseidonHash, Spec, get_spec
+from ..ops.poseidon import PoseidonHash, Spec, get_spec
 from ..nifs.vanilla import VanillaFS
 from ..plonk.structure import PlonkStructure, PlonkTrace
-from mira_tpu.table.circuit import ConstraintSystem
+from ..table.circuit import ConstraintSystem
 from ..table.runner import CircuitRunner, build_metainfo
 from .instance_computation import compute_instance_hash
-from mira_tpu.ivc.step_circuit import StepCircuit
+from ..ivc.step_circuit import StepCircuit
 from .step_folding_circuit import (
     NUM_IO,
     StepFoldingCircuit,

@@ -20,16 +20,16 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
-from mira_tpu.curves.host import AffinePoint, Tuple12
-from mira_tpu.fields.host import field
-from mira_tpu.gadgets.main_gate import CyclicAssigner, MainGate
-from mira_tpu.gadgets.poseidon_chip import PoseidonChip
-from mira_tpu.ops.poseidon import Spec, get_spec
+from ..curves.host import AffinePoint, Tuple12
+from ..fields.host import field
+from ..gadgets.main_gate import CyclicAssigner, MainGate
+from ..gadgets.poseidon_chip import PoseidonChip
+from ..ops.poseidon import Spec, get_spec
 from ..plonk.structure import PlonkInstance, RelaxedPlonkInstance
-from mira_tpu.table.circuit import ConstraintSystem, RegionCtx
+from ..table.circuit import ConstraintSystem, RegionCtx
 from .fold_chip import AssignedRelaxedPlonkInstance, FoldRelaxedPlonkInstanceChip
 from .instance_computation import compute_instance_hash_on_circuit
-from mira_tpu.ivc.step_circuit import StepCircuit
+from ..ivc.step_circuit import StepCircuit
 
 MAIN_GATE_T = 5
 NUM_IO = 2

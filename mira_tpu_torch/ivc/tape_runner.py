@@ -15,7 +15,7 @@ synthesis (structure!) to input extraction (values).
 
 Port of mira_tpu/ivc/tape_runner.py: replay always yields a DeviceWitness on
 the commitment key's device, filled by the native tape VM
-(mira_tpu/utils/native_lib.py).
+(utils/native_lib.py).
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List
 
-from mira_tpu.table.circuit import ConstraintSystem, RegionCtx, TableData
-from mira_tpu.table.tape import Tape
+from ..table.circuit import ConstraintSystem, RegionCtx, TableData
+from ..table.tape import Tape
 
 from .step_folding_circuit import StepFoldingCircuit, StepInputs
 
@@ -208,7 +208,7 @@ def capture_sfc(k: int, sfc: StepFoldingCircuit, instance: List[int], curve):
 def replay_sfc(captured: CapturedSynthesis, sfc: StepFoldingCircuit, device):
     """Bind this step's inputs and run the tape VM; returns a DeviceWitness
     on `device`."""
-    from mira_tpu.utils.native_lib import tape_vm_available
+    from ..utils.native_lib import tape_vm_available
 
     if not tape_vm_available():
         raise RuntimeError("witness-tape replay needs the native tape VM "
@@ -225,7 +225,7 @@ def _replay_device(captured: CapturedSynthesis, inputs: List[int], device):
     import numpy as np
     import torch
 
-    from mira_tpu.utils.native_lib import tape_vm_run_raw
+    from ..utils.native_lib import tape_vm_run_raw
 
     from ..fields.limbs import NUM_LIMBS, NUM_WORDS, limb_field
     from ..table.packed import DeviceWitness, pack_int_cols

@@ -18,8 +18,8 @@ import random
 from functools import lru_cache
 from typing import List, Tuple
 
-from mira_tpu.curves.host import AffinePoint, Tuple12
-from mira_tpu.fields.host import field
+from ..curves.host import AffinePoint, Tuple12
+from ..fields.host import field
 
 from ..plonk.structure import (
     NUM_CHALLENGE_BITS,

@@ -3,7 +3,7 @@
 The key is array-backed: (n, 2, 16) uint32 raw (non-Montgomery) 16-bit limb
 affine coordinates, the format of mira_tpu's `.cache/ck/<curve>/<label>/
 {k}-svdw.npy` files, so both packages commit with one key.  Keys are made by
-the native hash-to-curve generator (mira_tpu/ops/native_keygen.py) and
+the native hash-to-curve generator (ops/native_keygen.py) and
 checked on load.
 
 Which commitment takes which MSM is mira_tpu's default configuration
@@ -32,8 +32,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from mira_tpu.curves.host import AffinePoint, CurveParams, LazyAffinePoint
-from mira_tpu.fields.host import field
+from ..curves.host import AffinePoint, CurveParams, LazyAffinePoint
+from ..fields.host import field
 
 from ..curves.torch_curve import jacobian_ops
 from ..fields.limbs import limb_field
@@ -77,7 +77,7 @@ class LazyPoint(LazyAffinePoint):
 def _validate_limbs_on_curve(curve: CurveParams, limbs: np.ndarray):
     """Raise if any (x, y) pair is off-curve (native batch check when the
     library loads, host ints otherwise)."""
-    from mira_tpu.ops.native_keygen import limbs16_to_u64x4, on_curve_check_native
+    from ..ops.native_keygen import limbs16_to_u64x4, on_curve_check_native
 
     bad = on_curve_check_native(limbs16_to_u64x4(limbs), curve)
     if bad is not None:
@@ -109,8 +109,8 @@ def _key_rows(curve: CurveParams, label: bytes, start: int, stop: int) -> np.nda
     where it loads, its Python hash-to-curve otherwise)."""
     import ctypes
 
-    from mira_tpu.curves.svdw import CURVE_IDS, hash_to_curve, svdw_constants
-    from mira_tpu.ops.native_keygen import (
+    from ..curves.svdw import CURVE_IDS, hash_to_curve, svdw_constants
+    from ..ops.native_keygen import (
         _field_pack,
         _int_to_u64x4,
         load,

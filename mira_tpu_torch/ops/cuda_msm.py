@@ -15,7 +15,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from mira_tpu.curves.host import CurveParams
+from ..curves.host import CurveParams
 
 from .. import _build
 from ..fields.limbs import NUM_WORDS

@@ -16,7 +16,7 @@ from typing import List
 import numpy as np
 import torch
 
-from mira_tpu.curves.host import AffinePoint, CurveParams
+from ..curves.host import AffinePoint, CurveParams
 
 from ..fields.limbs import limb_field
 
@@ -50,7 +50,7 @@ class MockCommitmentKey:
         """<weights, witness> on the native 4x64 Montgomery inner product
         (mont_mul(w_plain, v_mont) = w*v, so no decode pass); the port's
         (n, 8) int32 words are the byte image of its (n, 4) uint64 limbs."""
-        from mira_tpu.fields.native64 import available, inner_product_mont, ints_to_64
+        from ..fields.native64 import available, inner_product_mont, ints_to_64
 
         n = witness_mont.shape[0]
         if n > self.size:

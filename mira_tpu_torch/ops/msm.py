@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from mira_tpu.curves.host import CurveParams
+from ..curves.host import CurveParams
 
 from ..curves.torch_curve import jacobian_ops
 from ..fields.limbs import Lz, ints_to_words

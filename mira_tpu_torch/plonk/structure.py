@@ -18,9 +18,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from mira_tpu.curves.host import AffinePoint, CurveParams, G2Point, Tuple12
-from mira_tpu.fields.host import field
-from mira_tpu.polynomial.expression import (
+from ..curves.host import AffinePoint, CurveParams, G2Point, Tuple12
+from ..fields.host import field
+from ..polynomial.expression import (
     CompressedGates,
     Expression,
     QueryIndexContext,
@@ -48,7 +48,7 @@ class LookupArguments:
         return len(self.lookup_polys)
 
     def vanishing_lookup_polys(self, ctx: QueryIndexContext) -> List[Expression]:
-        from mira_tpu.polynomial.expression import Poly, Query
+        from ..polynomial.expression import Poly, Query
 
         lookup_offset = ctx.num_selectors + ctx.num_fixed + ctx.num_advice
         exprs = []
@@ -59,7 +59,7 @@ class LookupArguments:
         return exprs
 
     def log_derivative_lhs_and_rhs(self, ctx: QueryIndexContext) -> List[Expression]:
-        from mira_tpu.polynomial.expression import Challenge, Const, Poly, Query
+        from ..polynomial.expression import Challenge, Const, Poly, Query
 
         challenge_index = 1 if self.has_vector_lookup else 0
         lookup_offset = ctx.num_selectors + ctx.num_fixed + ctx.num_advice
@@ -136,6 +136,15 @@ class PlonkStructure:
 
     def get_degree_for_folding(self) -> int:
         return len(self.compressed_gates.grouped)
+
+    def query_ctx(self) -> QueryIndexContext:
+        return QueryIndexContext(
+            num_selectors=len(self.selectors),
+            num_fixed=len(self.fixed_columns),
+            num_advice=self.num_advice_columns,
+            num_challenges=self.num_challenges,
+            num_lookups=self.num_lookups(),
+        )
 
     # -- evaluators (cached per device) -------------------------------------
     def _cache(self) -> dict:

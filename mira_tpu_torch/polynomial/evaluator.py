@@ -14,7 +14,7 @@ from typing import List, Sequence
 
 import torch
 
-from mira_tpu.polynomial.expression import Expression, Query
+from ..polynomial.expression import Expression, Query
 
 from ..fields.limbs import limb_field
 

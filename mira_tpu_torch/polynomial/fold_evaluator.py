@@ -17,7 +17,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from mira_tpu.polynomial.expression import (
+from ..polynomial.expression import (
     Challenge,
     Const,
     Expression,

@@ -26,9 +26,9 @@ from __future__ import annotations
 import json
 from typing import List, Tuple
 
-from mira_tpu.curves.host import BN254_G1, AffinePoint, Fq2, G2Point
-from mira_tpu.fields.host import field
-from mira_tpu.fields.params import BN254_FQ, BN254_FR
+from ..curves.host import BN254_G1, AffinePoint, Fq2, G2Point
+from ..fields.host import field
+from ..fields.params import BN254_FQ, BN254_FR
 
 from .groth16 import Proof, VerifyingKey
 

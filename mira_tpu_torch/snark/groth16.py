@@ -1,9 +1,10 @@
 """Groth16 over BN254 on this framework's own stack (pairing, NTT, MSM);
 port of mira_tpu/snark/groth16.py, whose only jax tie is its NTT import:
 the host NTT comes from the port's ops/ntt.py, SatError from the port's
-plonk/structure.py, and everything else from mira_tpu's jax-free modules.
+plonk/structure.py, and everything else from the port's copies of the host
+field, curve and pairing modules.
 The setup's G2 generator multiples and the prover's G2 MSM run in
-Jacobian coordinates, the G1 multiples through mira_tpu's native MSM (see
+Jacobian coordinates, the G1 multiples through the native host MSM (see
 "host group arithmetic" below): the same keys and proofs as mira_tpu's
 from the same rng, in seconds instead of minutes.
 
@@ -42,10 +43,10 @@ import random
 from functools import lru_cache
 from typing import Dict, List, Tuple
 
-from mira_tpu.curves.host import BN254_G1, AffinePoint, Fq2, G2Point, Tuple12
-from mira_tpu.curves.pairing import pairing
-from mira_tpu.fields.host import field
-from mira_tpu.fields.params import field_params
+from ..curves.host import BN254_G1, AffinePoint, Fq2, G2Point, Tuple12
+from ..curves.pairing import pairing
+from ..fields.host import field
+from ..fields.params import field_params
 
 from ..ops.ntt import get_omega, ntt_host
 from ..plonk.structure import SatError
@@ -222,11 +223,11 @@ def _msm_g1(scalars: List[int], points: List[AffinePoint]) -> AffinePoint:
         return AffinePoint.identity(BN254_G1)
     sc = [s for s, _ in pairs]
     pts = [pt for _, pt in pairs]
-    from mira_tpu.ops.native_msm import available, msm_native
+    from ..ops.native_msm import available, msm_native
 
     if available() and len(sc) >= 64:
         return msm_native(sc, pts)
-    from mira_tpu.curves.host import msm_host_pippenger
+    from ..curves.host import msm_host_pippenger
 
     return msm_host_pippenger(sc, pts)
 
@@ -326,8 +327,8 @@ def _g2_msm(scalars: List[int], points: List[G2Point]) -> G2Point:
 # field inversion per step; a 1000-constraint setup and each proof's G2 MSM
 # then take minutes of host time.  The port computes the same G2 elements in
 # Jacobian coordinates: a fixed-base window table of the generator for the
-# setup, Pippenger for the prover's MSM.  G1 goes through mira_tpu's native
-# MSM (its host Pippenger without the native library).
+# setup, Pippenger for the prover's MSM.  G1 goes through the native host
+# MSM (ops/native_msm.py; the host Pippenger without the native library).
 
 
 class _JacG2:
@@ -428,8 +429,8 @@ def _g2_generator_table():
 
 def _g1_muls(scalars: List[int]) -> List[AffinePoint]:
     """[k * G1] for each k (the G1 generator)."""
-    from mira_tpu.curves.host import msm_host_pippenger
-    from mira_tpu.ops.native_msm import available, msm_native
+    from ..curves.host import msm_host_pippenger
+    from ..ops.native_msm import available, msm_native
 
     G = AffinePoint.generator(BN254_G1)
     if available():

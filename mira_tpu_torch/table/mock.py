@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import List
 
-from mira_tpu.table.circuit import ConstraintSystem, TableData
+from ..table.circuit import ConstraintSystem, TableData
 
 from ..polynomial.evaluator import EvalDomain, eval_rows_host
 

@@ -12,8 +12,8 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
-from mira_tpu.curves.host import CurveParams
-from mira_tpu.polynomial.expression import (
+from ..curves.host import CurveParams
+from ..polynomial.expression import (
     CompressedGates,
     Const,
     Challenge,
@@ -27,7 +27,7 @@ from mira_tpu.polynomial.expression import (
     Sum,
     compress_expressions,
 )
-from mira_tpu.table.circuit import ConstraintSystem, RegionCtx, TableData
+from ..table.circuit import ConstraintSystem, RegionCtx, TableData
 
 from ..plonk.structure import LookupArguments, PlonkStructure
 

@@ -81,6 +81,24 @@ def reset():
     _state.current = None
 
 
+def totals() -> dict:
+    """{name: [count, seconds]} over every span of the tree, for loops whose
+    spans repeat too often to print one by one (a span's seconds include its
+    children's)."""
+    out: dict = {}
+
+    def walk(s: _Span):
+        entry = out.setdefault(s.name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += s.total
+        for c in s.children:
+            walk(c)
+
+    for r in _state.roots:
+        walk(r)
+    return out
+
+
 def report(min_runtime: float = 0.0) -> str:
     """The span tree with per-span busy/total seconds, dropping spans faster
     than min_runtime."""

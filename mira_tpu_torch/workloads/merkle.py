@@ -1,5 +1,5 @@
 """Merkle-tree-update step circuit (port of mira_tpu/workloads/merkle.py):
-the same circuit over mira_tpu's jax-free gadgets, with the main-gate
+the same circuit over the port's copy of the gadgets, with the main-gate
 width taken from the port's step-folding circuit.  The step circuit of
 SnarkStar's primary side (workloads/snarkstar.py)."""
 
@@ -8,15 +8,15 @@ from __future__ import annotations
 from collections import deque
 from typing import Deque, List
 
-from mira_tpu.gadgets.main_gate import MainGate
-from mira_tpu.gadgets.merkle import (
+from ..gadgets.main_gate import MainGate
+from ..gadgets.merkle import (
     INDEX_LIMIT,
     MerkleTreeUpdateChip,
     NodeUpdate,
     Proof,
     Tree,
 )
-from mira_tpu.ivc.step_circuit import StepCircuit
+from ..ivc.step_circuit import StepCircuit
 
 from ..ivc.step_folding_circuit import MAIN_GATE_T
 

@@ -55,8 +55,8 @@ def run(steps: int = 1, batch_size: int = 1, use_mock_ck: bool = True,
     the device's end) and "verify"; besides, under "tables", the (lanes,
     window) of each key's multiples tables by curve name, as they stood
     before the decider freed them, and under "ivc" the verified IVC."""
-    from mira_tpu.curves.host import BN254_G1, GRUMPKIN
-    from mira_tpu.ivc.step_circuit import TrivialCircuit
+    from ..curves.host import BN254_G1, GRUMPKIN
+    from ..ivc.step_circuit import TrivialCircuit
 
     from ..ivc.ivc import IVC
     from ..ivc.public_params import CircuitSide, PublicParams

@@ -9,14 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from mira_tpu.curves.host import BN254_G1, GRUMPKIN, AffinePoint
 from mira_tpu.fields.limbs import limb_field as jax_limb_field
 from mira_tpu.ops.commitment import CommitmentKey as MiraKey
+from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint
 from mira_tpu_torch.fields.limbs import limb_field
 from mira_tpu_torch.ops.commitment import CommitmentKey, LazyPoint
 from mira_tpu_torch.table.packed import DeviceWitness
 
-import torch_port_helpers  # noqa: F401  (sizes torch's thread pool)
+from torch_port_helpers import same, to_mira  # also sizes torch's thread pool
 
 K = 6
 CURVES = [BN254_G1, GRUMPKIN]
@@ -30,7 +30,8 @@ def cache_dir(tmp_path_factory):
 
 def keys(curve, cache_dir):
     label = f"torch-test-{curve.name}"
-    theirs = MiraKey.load_or_setup_cache(curve, K, label, cache_dir=cache_dir)
+    theirs = MiraKey.load_or_setup_cache(to_mira(curve), K, label,
+                                         cache_dir=cache_dir)
     mine = CommitmentKey.load_or_setup_cache(curve, K, label, cache_dir=cache_dir)
     return theirs, mine
 
@@ -43,17 +44,17 @@ def test_same_key_file_same_commitments(curve, cache_dir):
     r = curve.scalar_modulus
     vals = [rng.randrange(r) for _ in range(1 << K)]
     vals[:3] = [0, 1, r - 1]
-    assert mine.commit_ints(vals) == theirs.commit_ints(vals)
+    assert same(mine.commit_ints(vals), theirs.commit_ints(vals))
     short = vals[:37]
     lf, jlf = limb_field(r), jax_limb_field(r)
-    assert mine.commit_device(lf.encode(short)) == \
-        theirs.commit_device(jlf.encode(short))
+    assert same(mine.commit_device(lf.encode(short)),
+                theirs.commit_device(jlf.encode(short)))
     with pytest.raises(ValueError):
         mine.commit_ints(vals + [1])
 
 
 def test_prefix_of_a_larger_key(cache_dir):
-    big = MiraKey.load_or_setup_cache(BN254_G1, K + 1, "torch-prefix",
+    big = MiraKey.load_or_setup_cache(to_mira(BN254_G1), K + 1, "torch-prefix",
                                       cache_dir=cache_dir)
     small = CommitmentKey.load_or_setup_cache(BN254_G1, K, "torch-prefix",
                                               cache_dir=cache_dir)
@@ -61,7 +62,7 @@ def test_prefix_of_a_larger_key(cache_dir):
 
 
 def test_corrupted_key_file_raises(tmp_path):
-    key = MiraKey.load_or_setup_cache(BN254_G1, 3, "torch-bad",
+    key = MiraKey.load_or_setup_cache(to_mira(BN254_G1), 3, "torch-bad",
                                       cache_dir=str(tmp_path))
     path = tmp_path / "bn254" / "torch-bad" / "3-svdw.npy"
     arr = np.load(path)
@@ -187,5 +188,5 @@ def test_key_grows_from_a_cached_smaller_key(curve, tmp_path):
     small = CommitmentKey.load_or_setup_cache(curve, 5, "grow", cache_dir=cache)
     big = CommitmentKey.load_or_setup_cache(curve, 8, "grow", cache_dir=cache)
     assert np.array_equal(big._limbs[:32], small._limbs)
-    assert np.array_equal(big._limbs, MiraKey.setup(curve, 8, b"grow")._limbs)
+    assert np.array_equal(big._limbs, MiraKey.setup(to_mira(curve), 8, b"grow")._limbs)
     assert (tmp_path / "ck" / curve.name / "grow" / "8-svdw.npy").exists()

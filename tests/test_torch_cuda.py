@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from mira_tpu.curves.host import BN254_G1, GRUMPKIN, AffinePoint
-from mira_tpu.fields.params import BN254_FQ, BN254_FR
 from mira_tpu_torch.convert import msm_reference
+from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint
+from mira_tpu_torch.fields.params import BN254_FQ, BN254_FR
 from mira_tpu_torch.curves.torch_curve import jacobian_ops
 from mira_tpu_torch.fields.limbs import limb_field
 from mira_tpu_torch.ops import cuda_msm
@@ -178,3 +178,102 @@ def test_fixed_kernels_reject_other_windows(cuda_device):  # noqa: F811
     P = ops.encode_points([AffinePoint.generator(BN254_G1)], cuda_device)
     with pytest.raises(ValueError):
         cuda_msm.fixed_table(P, BN254_G1, 4)
+
+
+# -- the NTT kernels ----------------------------------------------------------
+def _ntt_inputs(n, seed, dev):
+    p = BN254_FR
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+    vals[: min(n, 4)] = [0, p - 1, 1, p - 1][: min(n, 4)]
+    return vals, limb_field(p).encode(vals, dev)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("log_n", [1, 2, 3, 7, 11, 12, 13])
+def test_ntt_kernels_match_plain_and_host(log_n, inverse, cuda_device):  # noqa: F811
+    """Both engines, where the size admits them, against the plain version on
+    the card and the host transform: even and odd log n, 0 and p - 1 among
+    the inputs."""
+    from mira_tpu_torch.ops import ntt
+
+    p = BN254_FR
+    vals, a = _ntt_inputs(1 << log_n, log_n, cuda_device)
+    want = ntt.ntt_plain(a, p, inverse)
+    assert limb_field(p).decode(want) == ntt.ntt_host(vals, p, inverse)
+    engines = ["stage"] + (["fourstep"] if log_n >= 2 else [])
+    for engine in engines + ["auto"]:
+        got = ntt.ntt(a, p, inverse, engine=engine)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), engine
+    assert torch.equal(a, limb_field(p).encode(vals, cuda_device))  # input kept
+
+
+def test_ntt_stage_kernel_matches_plain_stage(cuda_device):  # noqa: F811
+    from mira_tpu_torch.ops import cuda_ntt, ntt
+
+    p = BN254_FR
+    _, a = _ntt_inputs(1 << 10, 3, cuda_device)
+    tw = ntt._twiddle_table(p, 10, False, str(cuda_device))
+    for half in (1, 8, 512):
+        got = cuda_ntt.stage_cuda(a, tw, half, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ntt.stage_plain(a, tw, half, p))
+
+
+def test_coset_round_trip_and_engine_limits(cuda_device):  # noqa: F811
+    from mira_tpu_torch.ops import cuda_ntt, ntt
+
+    p = BN254_FR
+    vals, a = _ntt_inputs(1 << 12, 9, cuda_device)
+    for engine in ("stage", "fourstep"):
+        back = ntt.coset_intt(ntt.coset_ntt(a, p, engine), p, engine)
+        assert torch.equal(back, a)
+    with pytest.raises(ValueError):
+        cuda_ntt.ntt_fourstep_cuda(a[:2], p)
+
+
+# -- the Poseidon kernel ------------------------------------------------------
+@pytest.mark.parametrize("t,rate,length", [(3, 2, 2), (3, 2, 3), (5, 4, 4),
+                                           (5, 4, 6), (2, 1, 1), (3, 2, 0),
+                                           (4, 3, 7)])
+def test_poseidon_kernel_matches_plain_and_host(t, rate, length, cuda_device):  # noqa: F811
+    """N is not a multiple of the kernel's block; 0 and p - 1 rows."""
+    from mira_tpu_torch.fields.host import field
+    from mira_tpu_torch.ops.poseidon import PoseidonHash, get_spec
+    from mira_tpu_torch.ops.poseidon_device import (
+        poseidon_hash_batch,
+        poseidon_hash_batch_plain,
+    )
+
+    p = BN254_FR
+    lf = limb_field(p)
+    n = 131
+    rng = np.random.default_rng(t + length)
+    vals = [[int.from_bytes(rng.bytes(32), "little") % p for _ in range(length)]
+            for _ in range(n)]
+    if length:
+        vals[0], vals[1] = [0] * length, [p - 1] * length
+    flat = lf.encode([v for row in vals for v in row], cuda_device).reshape(
+        n, length, 8)
+    got = poseidon_hash_batch(flat, p, t=t, rate=rate)
+    torch.cuda.synchronize()
+    assert torch.equal(got, poseidon_hash_batch_plain(flat, p, t=t, rate=rate))
+    F = field(p)
+    for i in (0, 1, n - 1):
+        h = PoseidonHash(get_spec(p, t, rate, 10, 10))
+        h.update([F(v) for v in vals[i]])
+        buf, h.buf = h.buf, []
+        for j in range(0, len(buf), rate):
+            h.permutation(buf[j : j + rate])
+        if len(buf) % rate == 0:
+            h.permutation([])
+        assert lf.decode(got[i : i + 1]) == [h.state[1].v]
+
+
+def test_poseidon_kernel_rejects_wide_states(cuda_device):  # noqa: F811
+    from mira_tpu_torch.ops.cuda_poseidon import poseidon_hash_batch_cuda
+
+    flat = torch.zeros(4, 5, 8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        poseidon_hash_batch_cuda(flat, BN254_FR, t=6, rate=5)

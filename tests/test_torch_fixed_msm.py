@@ -13,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from mira_tpu.curves.host import BN254_G1, GRUMPKIN, AffinePoint, msm_host
+from mira_tpu.curves.host import msm_host
 from mira_tpu.curves.jax_curve import jacobian_ops as jax_jacobian_ops
 from mira_tpu.ops.native_msm import msm_native
 from mira_tpu.ops.pallas_msm import precompute_fixed_table
 from mira_tpu_torch.convert import limbs16_to_words
+from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint
 from mira_tpu_torch.curves.torch_curve import jacobian_ops
 from mira_tpu_torch.fields.limbs import limb_field
 from mira_tpu_torch.ops import commitment as commitment_mod
@@ -31,7 +32,7 @@ from mira_tpu_torch.ops.msm import (
 )
 from mira_tpu_torch.table.packed import DeviceWitness
 
-import torch_port_helpers  # noqa: F401  (sizes torch's thread pool)
+from torch_port_helpers import same, to_mira  # also sizes torch's thread pool
 
 CURVES = [BN254_G1, GRUMPKIN]
 IDS = ["bn254", "grumpkin"]
@@ -67,7 +68,8 @@ def test_plain_table_matches_mira(curve, window):
     mine = precompute_fixed_table_plain(jacobian_ops(curve.name).encode_points(pts),
                                         curve, window)
     theirs = np.asarray(precompute_fixed_table(
-        jax_jacobian_ops(curve.name).encode_points(pts), curve, window))
+        jax_jacobian_ops(curve.name).encode_points(to_mira(pts)),
+        to_mira(curve), window))
     ntab = 1 << (window - 1)
     assert mine.shape == (256, ntab, 2, 8)
     lf = limb_field(curve.base_modulus)
@@ -82,14 +84,14 @@ def test_plain_table_matches_mira(curve, window):
 @pytest.mark.parametrize("window", [5, 6])
 def test_plain_fixed_msm_256_vs_host(curve, window):
     sc, pts = adversarial(curve, 256, seed=window)
-    assert fixed_msm(curve, sc, pts, window) == msm_host(sc, pts)
+    assert same(fixed_msm(curve, sc, pts, window), msm_host(sc, to_mira(pts)))
 
 
 @pytest.mark.parametrize("curve", CURVES, ids=IDS)
 def test_plain_fixed_msm_1000_vs_native(curve):
     """A width that is not a multiple of the TPU kernel's 256-lane block."""
     sc, pts = adversarial(curve, 1000, seed=3)
-    assert fixed_msm(curve, sc, pts, 5) == msm_native(sc, pts)
+    assert same(fixed_msm(curve, sc, pts, 5), msm_native(sc, to_mira(pts)))
 
 
 def test_plain_fixed_msm_edge_cases():

@@ -7,13 +7,14 @@ import numpy as np
 import pytest
 import torch
 
-from mira_tpu.curves.host import BN254_G1
+from mira_tpu.curves.host import BN254_G1 as MIRA_BN254_G1
 from mira_tpu.fields.limbs import limb_field as jax_limb_field
 from mira_tpu.polynomial.evaluator import EvalDomain as MiraDomain
 from mira_tpu.polynomial.evaluator import eval_rows_host as mira_eval_rows
 from mira_tpu.polynomial.pallas_evaluator import PallasFoldEvaluator
 from mira_tpu.table.runner import CircuitRunner as MiraRunner
 from mira_tpu_torch.convert import limbs16_to_words
+from mira_tpu_torch.curves.host import BN254_G1
 from mira_tpu_torch.fields.limbs import limb_field
 from mira_tpu_torch.polynomial import fold_evaluator as fe
 from mira_tpu_torch.polynomial.evaluator import ColumnEvaluator
@@ -36,6 +37,12 @@ def _inputs(S, seed):
     return Ws1, Ws2, ch1, ch2
 
 
+def _mira_structure(circuit_cls, seed):
+    """mira_tpu's structure of the same circuit: the reference evaluators take
+    its expressions, never the port's."""
+    return MiraRunner(K, circuit_cls(seed), [], MIRA_BN254_G1).collect_structure()
+
+
 def _reference(S, Ws1, Ws2, js, ch1, ch2):
     jlf = jax_limb_field(S.modulus)
     ev = PallasFoldEvaluator(S.compressed_gates.homogeneous, S.modulus,
@@ -56,7 +63,8 @@ def test_fold_eval_all_points_vs_jnp(circuit_cls):
     lf = limb_field(S.modulus)
     got = S.fold_evaluator("cpu").fold_eval_multi(
         [lf.encode(w) for w in Ws1], [lf.encode(w) for w in Ws2], js, ch1, ch2)
-    assert torch.equal(got, _reference(S, Ws1, Ws2, js, ch1, ch2))
+    M = _mira_structure(circuit_cls, 1)
+    assert torch.equal(got, _reference(M, Ws1, Ws2, js, ch1, ch2))
 
 
 @pytest.mark.parametrize("circuit_cls", CIRCUITS)
@@ -70,12 +78,13 @@ def test_fold_eval_all_points_vs_host(circuit_cls):
     lf = limb_field(p)
     got = S.fold_evaluator("cpu").fold_eval_multi(
         [lf.encode(w) for w in Ws1], [lf.encode(w) for w in Ws2], js, ch1, ch2)
+    M = _mira_structure(circuit_cls, 4)
     for i, j in enumerate(js):
         Wj = [[(a + j * b) % p for a, b in zip(w1, w2)] for w1, w2 in zip(Ws1, Ws2)]
         chj = [(a + j * b) % p for a, b in zip(ch1, ch2)]
         dom = MiraDomain(p, S.num_advice_columns, S.num_lookups(), chj,
                          S.selectors, S.fixed_columns, Wj, [])
-        assert lf.decode(got[i]) == mira_eval_rows(S.compressed_gates.homogeneous, dom)
+        assert lf.decode(got[i]) == mira_eval_rows(M.compressed_gates.homogeneous, dom)
 
 
 @pytest.mark.parametrize("circuit_cls", CIRCUITS)
@@ -91,13 +100,14 @@ def test_decider_point_matches_column_and_host(circuit_cls):
     assert torch.equal(got, col)
     dom = MiraDomain(S.modulus, S.num_advice_columns, S.num_lookups(), ch1,
                      S.selectors, S.fixed_columns, Ws1, [])
-    want = mira_eval_rows(S.compressed_gates.homogeneous, dom)
+    M = _mira_structure(circuit_cls, 2)
+    want = mira_eval_rows(M.compressed_gates.homogeneous, dom)
     assert lf.decode(got) == want
 
 
 def test_registers_compacted_and_structure_matches_mira():
     S = CircuitRunner(K, FiboCircuit(0), [], BN254_G1).collect_structure()
-    M = MiraRunner(K, FiboCircuit(0), [], BN254_G1).collect_structure()
+    M = _mira_structure(FiboCircuit, 0)
     assert (S.round_sizes, S.num_challenges, S.fixed_columns,
             S.permutation_matrix) == (M.round_sizes, M.num_challenges,
                                       M.fixed_columns, M.permutation_matrix)
@@ -133,5 +143,6 @@ def test_column_evaluator_fold_eval():
     Wj = [[(a + j * b) % p for a, b in zip(w1, w2)] for w1, w2 in zip(Ws1, Ws2)]
     dom = MiraDomain(p, S.num_advice_columns, S.num_lookups(), chj,
                      S.selectors, S.fixed_columns, Wj, [])
-    assert lf.decode(got) == mira_eval_rows(S.compressed_gates.homogeneous, dom)
+    M = _mira_structure(TwoGateCircuit, 3)
+    assert lf.decode(got) == mira_eval_rows(M.compressed_gates.homogeneous, dom)
 

@@ -9,8 +9,8 @@ import random
 
 import pytest
 
-from mira_tpu.curves.host import BN254_G1, GRUMPKIN, AffinePoint, G2Point, Tuple12
-from mira_tpu.fields.host import field
+from mira_tpu.curves.host import BN254_G1 as MIRA_BN254_G1
+from mira_tpu.curves.host import AffinePoint as MiraPoint
 from mira_tpu.fields.params import BN254_FQ, BN254_FR
 from mira_tpu.nifs.vanilla import VanillaFS as MiraFS
 from mira_tpu.ops import ntt as mira_ntt
@@ -20,7 +20,9 @@ from mira_tpu.plonk import structure as ms
 from mira_tpu.snark import conversion as mira_conversion
 from mira_tpu.snark import groth16 as mira_g16
 from mira_tpu.table.runner import CircuitRunner as MiraRunner
-from mira_tpu_torch.convert import relaxed_trace_from_mira
+from mira_tpu_torch.convert import relaxed_trace_from_mira, to_plain
+from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint, G2Point, Tuple12
+from mira_tpu_torch.fields.host import field
 from mira_tpu_torch.fields.limbs import limb_field
 from mira_tpu_torch.nifs.vanilla import VanillaFS
 from mira_tpu_torch.ops import ntt
@@ -32,8 +34,8 @@ from mira_tpu_torch.snark import groth16 as g16
 from mira_tpu_torch.table.runner import CircuitRunner
 
 from test_nifs import K, MulCircuit
-from torch_port_helpers import relaxed_trace_to_mira
-from test_torch_nifs import ro
+from torch_port_helpers import relaxed_trace_to_mira, same, to_mira
+from test_torch_nifs import ro, ro_t
 
 
 @pytest.mark.parametrize("log_n", [0, 1, 3, 5])
@@ -59,9 +61,9 @@ def test_host_ntt_rejects_bad_sizes():
 
 
 def fields_of(obj):
-    """A Groth16 key or proof as its fields, so that the port's objects
-    compare with mira_tpu's (dataclasses of another class)."""
-    return vars(obj)
+    """A Groth16 key or proof as plain data, so that the port's objects
+    compare with mira_tpu's (other classes all the way down)."""
+    return to_plain(obj)
 
 
 def items_of(items):
@@ -90,7 +92,7 @@ def test_groth16_matches_mira_and_verifies(proofs):
     assert fields_of(pk.vk) == fields_of(m_pk.vk)
     for name in ("beta_g1", "delta_g1", "a_query", "b_g1_query", "b_g2_query",
                  "h_query", "l_query"):
-        assert getattr(pk, name) == getattr(m_pk, name), name
+        assert same(getattr(pk, name), getattr(m_pk, name)), name
     assert items_of(items) == items_of(m_items)
     assert all(g16.verify(pk.vk, p, pub) for p, _ in items)
     bad = g16.Proof(a=items[0][0].a, b=items[0][0].b, c=items[1][0].a)
@@ -109,8 +111,8 @@ def test_host_g2_msm_matches_mira():
     pts = base + [base[0], base[1].neg(), G2Point.identity(F), base[2]]
     sc = [rng.randrange(BN254_FR) for _ in pts]
     sc[1], sc[3] = 0, BN254_FR
-    want = mira_g16._g2_msm(sc, pts)
-    assert g16._g2_msm(sc, pts) == want
+    want = mira_g16._g2_msm(sc, to_mira(pts))
+    assert same(g16._g2_msm(sc, pts), want)
     assert g16._g2_msm([1, 1], [base[0], base[0].neg()]).is_inf
     with pytest.raises(ValueError):
         g16._g2_msm([0, BN254_FR], base[:2])
@@ -131,18 +133,19 @@ def test_proof_bundle_round_trips_with_mira(proofs, tmp_path):
     conversion.save_proof_bundle(str(tmp_path / "port.json"), pk.vk, items)
     vk, got = mira_conversion.load_proof_bundle(str(tmp_path / "port.json"))
     assert fields_of(vk) == fields_of(pk.vk) and items_of(got) == items_of(items)
-    mira_conversion.save_proof_bundle(str(tmp_path / "mira.json"), pk.vk, items)
+    mira_conversion.save_proof_bundle(str(tmp_path / "mira.json"), vk, got)
     vk, got = conversion.load_proof_bundle(str(tmp_path / "mira.json"))
     assert vk == pk.vk and got == items
 
 
 @pytest.mark.parametrize("curve", [BN254_G1, GRUMPKIN], ids=["bn254", "grumpkin"])
 def test_mock_key_matches_mira(curve):
-    mine, theirs = MockCommitmentKey(curve, 6, b"t"), MiraMockKey(curve, 6, b"t")
+    mine = MockCommitmentKey(curve, 6, b"t")
+    theirs = MiraMockKey(to_mira(curve), 6, b"t")
     rng = random.Random(1)
     vals = [rng.randrange(curve.scalar_modulus) for _ in range(50)]
-    want = theirs.commit_ints(vals)
-    assert mine.commit_ints(vals) == want
+    want = mine.commit_ints(vals)
+    assert same(want, theirs.commit_ints(vals))
     v = limb_field(curve.scalar_modulus).encode(vals)
     assert mine.commit_device(v) == want
     assert mine.commit_device_many([v, v], defer=True)() == [want, want]
@@ -151,7 +154,8 @@ def test_mock_key_matches_mira(curve):
 
 
 def _runner(cls, circuit, ctx):
-    return cls(K, circuit, [], BN254_G1, ctx.num_g1, ctx.num_g2, ctx.gt_degree,
+    curve = BN254_G1 if cls is CircuitRunner else MIRA_BN254_G1
+    return cls(K, circuit, [], curve, ctx.num_g1, ctx.num_g2, ctx.gt_degree,
                ctx.num_gt_cross_terms)
 
 
@@ -171,21 +175,20 @@ def test_real_proofs_fold_matches_mira(proofs):
     S_t.groth16_ctx, S_m.groth16_ctx = ctxs["port"], ctxs["mira"]
     advice = [_runner(MiraRunner, MulCircuit(s), ctxs["mira"]).collect_witness()
               for s in (1, 2)]
-    ck_m = MiraKey.setup(BN254_G1, K + 2, b"test")
+    ck_m = MiraKey.setup(MIRA_BN254_G1, K + 2, b"test")
     ck_t = CommitmentKey(BN254_G1, ck_m._limbs)
-    G = AffinePoint.generator(BN254_G1)
-    pp_m, vp = MiraFS.setup_params(G, S_m)
-    pp_t, _ = VanillaFS.setup_params(G, S_t)
+    pp_m, _ = MiraFS.setup_params(MiraPoint.generator(MIRA_BN254_G1), S_m)
+    pp_t, vp = VanillaFS.setup_params(AffinePoint.generator(BN254_G1), S_t)
 
     items = proofs["port"][4]
     traces = []
     for i, adv in enumerate(advice):
-        tt = VanillaFS.generate_plonk_trace(ck_t, [], adv, pp_t, ro())
+        tt = VanillaFS.generate_plonk_trace(ck_t, [], adv, pp_t, ro_t())
         tm = MiraFS.generate_plonk_trace(ck_m, [], adv, pp_m, ro())
         assert tt.u.g1_elements[0] == items[i][0].a
         assert tt.u.g2_elements[0] == items[i][0].b
-        assert tt.u.W_commitments == tm.u.W_commitments
-        assert tt.u.g1_elements == tm.u.g1_elements
+        assert same(tt.u.W_commitments, tm.u.W_commitments)
+        assert same(tt.u.g1_elements, tm.u.g1_elements)
         traces.append((tt, tm))
 
     acc_m = ms.RelaxedPlonkTrace(
@@ -200,11 +203,11 @@ def test_real_proofs_fold_matches_mira(proofs):
     for tt, tm in traces:
         prev_t = acc_t
         acc_m, proof_m = MiraFS.prove(ck_m, pp_m, ro(), acc_m, tm, rng=rng_m)
-        acc_t, proof_t = VanillaFS.prove(ck_t, pp_t, ro(), acc_t, tt, rng=rng_t)
-        assert proof_t[1] == proof_m[1]  # the real Gt cross terms
-        assert acc_t.U == acc_m.U
+        acc_t, proof_t = VanillaFS.prove(ck_t, pp_t, ro_t(), acc_t, tt, rng=rng_t)
+        assert same(proof_t[1], proof_m[1])  # the real Gt cross terms
+        assert same(acc_t.U, acc_m.U)
         S_t.is_sat_relaxed(ck_t, acc_t.U, acc_t.W)  # with the real-pairing Gt check
-        assert VanillaFS.verify(vp, ro(), ro(), prev_t.U, tt.u, proof_t) == acc_t.U
+        assert VanillaFS.verify(vp, ro_t(), ro_t(), prev_t.U, tt.u, proof_t) == acc_t.U
     assert rng_t.random() == rng_m.random()  # no placeholder draws on either
     # the port's accumulator, carried back, passes mira_tpu's decider too
     back = relaxed_trace_to_mira(acc_t)

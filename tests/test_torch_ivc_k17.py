@@ -13,15 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from mira_tpu.curves.host import BN254_G1, GRUMPKIN, AffinePoint
-from mira_tpu.ivc.step_circuit import TrivialCircuit
 from mira_tpu.polynomial.native_evaluator import NativeFoldEvaluator
 from mira_tpu_torch.convert import limbs16_to_words, words_to_limbs16
+from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint
 from mira_tpu_torch.ivc.ivc import IVC
 from mira_tpu_torch.ivc.public_params import CircuitSide, PublicParams
+from mira_tpu_torch.ivc.step_circuit import TrivialCircuit
 from mira_tpu_torch.table.runner import CircuitRunner
 
-import torch_port_helpers  # noqa: F401  (sizes torch's thread pool)
+from torch_port_helpers import expression_to_mira  # also sizes torch's threads
 
 K = 17
 pytestmark = pytest.mark.slow
@@ -72,8 +72,9 @@ def test_sfc_fold_eval_matches_native_row_vm(pp):
     js = list(range(S.get_degree_for_folding()))
     got = S.fold_evaluator("cpu").fold_eval_multi(W1, W2, js, ch1, ch2)
     native = NativeFoldEvaluator(
-        S.compressed_gates.homogeneous, S.modulus, S.num_advice_columns,
-        S.num_lookups(), S.selectors, S.fixed_columns, 1 << K)
+        expression_to_mira(S.compressed_gates.homogeneous), S.modulus,
+        S.num_advice_columns, S.num_lookups(), S.selectors, S.fixed_columns,
+        1 << K)
     want = native.fold_eval_multi([words_to_limbs16(w) for w in W1],
                                   [words_to_limbs16(w) for w in W2],
                                   js, ch1, ch2)

@@ -9,16 +9,17 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from mira_tpu.curves.host import BN254_G1, GRUMPKIN, AffinePoint, msm_host
+from mira_tpu.curves.host import msm_host
 from mira_tpu.curves.jax_curve import jacobian_ops as jax_jacobian_ops
 from mira_tpu.ops.native_msm import msm_native
 from mira_tpu_torch import _build
 from mira_tpu_torch.convert import limbs16_to_words
+from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint
 from mira_tpu_torch.curves.torch_curve import jacobian_ops
 from mira_tpu_torch.ops import cuda_msm
 from mira_tpu_torch.ops.msm import encode_scalars, msm_plain, signed_digits
 
-import torch_port_helpers  # noqa: F401  (sizes torch's thread pool)
+from torch_port_helpers import same, to_mira  # also sizes torch's thread pool
 
 
 CURVES = [BN254_G1, GRUMPKIN]
@@ -51,14 +52,14 @@ def test_add_double_vs_jax_curve_and_host(curve):
     b += [b[0], AffinePoint.identity(curve), b[1], b[2]]
     ops, jops = jacobian_ops(curve.name), jax_jacobian_ops(curve.name)
     A, B = ops.encode_points(a), ops.encode_points(b)
-    JA, JB = jops.encode_points(a), jops.encode_points(b)
+    JA, JB = jops.encode_points(to_mira(a)), jops.encode_points(to_mira(b))
     assert all(torch.equal(x, limbs16_to_words(y)) for x, y in zip(A, JA))
     got = ops.decode_points(ops.add(A, B))
     assert got == [x.add(y) for x, y in zip(a, b)]
-    assert got == jops.decode_points(jops.add(JA, JB))
+    assert same(got, jops.decode_points(jops.add(JA, JB)))
     dbl = ops.decode_points(ops.double(A))
     assert dbl == [x.double() for x in a]
-    assert dbl == jops.decode_points(jops.double(JA))
+    assert same(dbl, jops.decode_points(jops.double(JA)))
 
 
 def test_signed_digits_recompose():
@@ -74,13 +75,14 @@ def test_signed_digits_recompose():
 @pytest.mark.parametrize("curve", CURVES, ids=IDS)
 def test_plain_msm_256_vs_host(curve):
     sc, pts = adversarial(curve, 256, seed=99)
-    assert run_msm(msm_plain, curve, sc, pts) == msm_host(sc, pts)
+    assert same(run_msm(msm_plain, curve, sc, pts), msm_host(sc, to_mira(pts)))
 
 
 @pytest.mark.parametrize("curve", CURVES, ids=IDS)
 def test_plain_msm_4096_vs_native(curve):
     sc, pts = adversarial(curve, 4096, seed=7)
-    assert run_msm(msm_plain, curve, sc, pts) == msm_native(sc, pts)
+    assert same(run_msm(msm_plain, curve, sc, pts),
+                msm_native(sc, to_mira(pts)))
 
 
 @pytest.mark.parametrize("curve", CURVES, ids=IDS)

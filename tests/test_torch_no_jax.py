@@ -1,9 +1,9 @@
-"""The port never imports jax: every mira_tpu_torch module imports, and a
-tiny SPS trace + commitment + is_sat + fold evaluation, a commitment through
-a multiples table and a Groth16 prove/verify run, in a process
-where importing jax raises, and in a plain process jax stays unloaded; and
-no import statement in the port's sources, inside functions included, names
-jax or a jax-bound mira_tpu module."""
+"""The port imports neither jax nor mira_tpu: every mira_tpu_torch module
+imports, and a tiny SPS trace + commitment + is_sat + fold evaluation, a
+commitment through a multiples table, a Groth16 prove/verify and a NIFS fold
+step run, in a process where importing jax or mira_tpu raises, and in a plain
+process both stay unloaded; and no import statement in the port's sources or
+in chip_smoke.py, inside functions included, names jax or mira_tpu."""
 
 import ast
 import glob
@@ -15,21 +15,13 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# mira_tpu modules that import no jax, directly or indirectly (the blocked
-# subprocess imports each); the port may import these and no others.
-JAX_FREE = ("constants", "curves.host", "curves.pairing", "curves.svdw",
-            "fields.host", "fields.native64", "fields.params", "gadgets",
-            "ivc.step_circuit", "ops.native_keygen", "ops.native_msm",
-            "ops.poseidon", "polynomial.expression", "table.circuit",
-            "table.tape", "utils.native_lib", "workloads.poseidon")
-
 BLOCKER = """
 import sys
-class _NoJax:
+class _Blocked:
     def find_spec(self, name, path=None, target=None):
-        if name.split('.')[0] in ('jax', 'jaxlib'):
-            raise ImportError('jax is blocked: ' + name)
-sys.meta_path.insert(0, _NoJax())
+        if name.split('.')[0] in ('jax', 'jaxlib', 'mira_tpu'):
+            raise ImportError('blocked in this process: ' + name)
+sys.meta_path.insert(0, _Blocked())
 """
 
 WORKLOAD = """
@@ -38,16 +30,13 @@ sys.path.insert(0, ROOT)
 import mira_tpu_torch
 for m in pkgutil.walk_packages(mira_tpu_torch.__path__, 'mira_tpu_torch.'):
     importlib.import_module(m.name)
-for name in JAX_FREE:  # the allow-list of test_port_sources_import_no_jax
-    mod = importlib.import_module('mira_tpu.' + name)
-    for m in pkgutil.walk_packages(getattr(mod, '__path__', []), mod.__name__ + '.'):
-        importlib.import_module(m.name)
 
-from mira_tpu.fields.params import BN254_FQ
-from mira_tpu.ops.poseidon import create_ro
+from mira_tpu_torch.curves.host import BN254_G1, AffinePoint
+from mira_tpu_torch.fields.params import BN254_FQ
+from mira_tpu_torch.nifs.vanilla import VanillaFS
 from mira_tpu_torch.ops.commitment import CommitmentKey
+from mira_tpu_torch.ops.poseidon import create_ro
 from mira_tpu_torch.table.runner import CircuitRunner
-from mira_tpu_torch.workloads.poseidon import BN254_G1
 
 
 class Mul:
@@ -79,6 +68,14 @@ out = S.fold_evaluator("cpu").fold_eval_multi(trace.w.W, trace.w.W, [0, 1, 2],
 assert out.shape == (3, 8, 8)
 assert not trace.u.W_commitments[0].is_inf
 
+# a NIFS fold step: the trace folded into itself, relaxed
+pp, vp = VanillaFS.setup_params(AffinePoint.generator(BN254_G1), S)
+acc = trace.to_relax(S.k)
+folded, proof = VanillaFS.prove(ck, pp, create_ro(BN254_FQ), acc, trace)
+S.is_sat_relaxed(ck, folded.U, folded.W)
+assert VanillaFS.verify(vp, create_ro(BN254_FQ), create_ro(BN254_FQ), acc.U,
+                        trace.u, proof) == folded.U
+
 # a recurring width through its multiples table, and a Groth16 proof
 import random
 from mira_tpu_torch.fields.limbs import limb_field
@@ -92,11 +89,12 @@ r1cs, z = groth16.benchmark_r1cs(4)
 pk = groth16.setup(r1cs, random.Random(0))
 assert groth16.verify(pk.vk, groth16.prove(pk, r1cs, z, random.Random(1)), z[1:3])
 print("JAX_LOADED", "jax" in sys.modules)
+print("MIRA_LOADED", "mira_tpu" in sys.modules)
 """
 
 
 def _run(prefix: str) -> str:
-    code = prefix + f"ROOT = {ROOT!r}\nJAX_FREE = {JAX_FREE!r}\n" + WORKLOAD
+    code = prefix + f"ROOT = {ROOT!r}\n" + WORKLOAD
     env = {k: v for k, v in os.environ.items() if k != "MIRA_FORCE_CPU"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, env=env, timeout=600)
@@ -108,6 +106,7 @@ def _run(prefix: str) -> str:
 def test_port_runs_without_jax(blocked):
     out = _run(BLOCKER if blocked else "")
     assert "JAX_LOADED False" in out
+    assert "MIRA_LOADED False" in out
 
 
 def _imported_modules(path):
@@ -117,25 +116,15 @@ def _imported_modules(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
-            if node.module == "mira_tpu":
-                yield from (f"mira_tpu.{a.name}" for a in node.names)
 
 
 def test_port_sources_import_no_jax():
     """Every import statement in the port and in chip_smoke.py, at any depth
-    of the file, names neither jax nor a jax-bound mira_tpu module."""
+    of the file, names neither jax nor mira_tpu (mira_tpu_torch is the port
+    itself)."""
     files = glob.glob(os.path.join(ROOT, "mira_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
-    bad = []
-    for path in files:
-        for mod in _imported_modules(path):
-            top = mod.split(".")[0]
-            if top in ("jax", "jaxlib"):
-                bad.append((path, mod))
-            elif top == "mira_tpu" and mod != "mira_tpu" and not any(
-                    mod[len("mira_tpu."):] == ok
-                    or mod[len("mira_tpu."):].startswith(ok + ".")
-                    for ok in JAX_FREE):
-                bad.append((path, mod))
-    assert len(files) > 20
+    bad = [(path, mod) for path in files for mod in _imported_modules(path)
+           if mod.split(".")[0] in ("jax", "jaxlib", "mira_tpu")]
+    assert len(files) > 40
     assert not bad, bad

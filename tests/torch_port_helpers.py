@@ -15,6 +15,70 @@ if _workers > 1:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // _workers))
 
 
+def same(a, b):
+    """Equality of host values across the two packages (field elements,
+    points, Gt tuples, dataclasses of them, lists): compared as plain data,
+    since an object of one package never equals the other's."""
+    from mira_tpu_torch.convert import to_plain
+
+    return to_plain(a) == to_plain(b)
+
+
+def mira_from_plain(d):
+    """mira_tpu's object for plain data made by `convert.to_plain` (the way
+    back across the boundary; it imports mira_tpu, so it lives here and not in
+    the port)."""
+    from mira_tpu.curves.host import (
+        BN254_G1, GRUMPKIN, AffinePoint, Fq2, G2Point, Tuple12)
+    from mira_tpu.fields.host import field
+
+    if isinstance(d, list):
+        return [mira_from_plain(x) for x in d]
+    if isinstance(d, dict):
+        return {k: mira_from_plain(x) for k, x in d.items()}
+    if not isinstance(d, tuple):
+        return d
+    tag = d[0]
+    if tag == "F":
+        return field(d[1])(d[2])
+    if tag == "curve":
+        return {"bn254": BN254_G1, "grumpkin": GRUMPKIN}[d[1]]
+    if tag == "G1":
+        return AffinePoint(mira_from_plain(("curve", d[1])), d[2], d[3], d[4])
+    if tag == "Fq2":
+        F = field(d[1])
+        return Fq2(F(d[2]), F(d[3]))
+    if tag == "Gt":
+        F = field(d[1])
+        return Tuple12([F(e) for e in d[2]], F)
+    if tag == "G2":
+        F = field(d[1])
+        return G2Point(Fq2(F(d[2][0]), F(d[2][1])), Fq2(F(d[3][0]), F(d[3][1])),
+                       d[4])
+    if tag == "poly":
+        from mira_tpu.polynomial.univariate import UnivariatePoly
+
+        return UnivariatePoly(d[2], d[1])
+    raise ValueError(f"unknown plain tag {tag!r}")
+
+
+def to_mira(v):
+    """mira_tpu's own object for a host value of either package."""
+    from mira_tpu_torch.convert import to_plain
+
+    return mira_from_plain(to_plain(v))
+
+
+def expression_to_mira(e):
+    """A port gate expression rebuilt from mira_tpu's node classes (the
+    expression folds itself; only ints and query indices cross)."""
+    from mira_tpu.polynomial import expression as me
+
+    return e.evaluate(me.Const,
+                      lambda q: me.Poly(me.Query(q.index, q.rotation)),
+                      me.Challenge, me.Neg, me.Sum, me.Product, me.Scaled)
+
+
 def relaxed_trace_to_mira(t):
     """Port RelaxedPlonkTrace -> mira_tpu's (loads jax, so it lives here and
     not in the port)."""
@@ -31,9 +95,23 @@ def relaxed_trace_to_mira(t):
         lf, [jnp.asarray(words_to_limbs16(x)) for x in t.W.W],
         jnp.asarray(words_to_limbs16(t.W.E)))
     U = ms.RelaxedPlonkInstance(**{
-        f.name: getattr(t.U, f.name)
+        f.name: to_mira(getattr(t.U, f.name))
         for f in dataclasses.fields(ms.RelaxedPlonkInstance)})
     return ms.RelaxedPlonkTrace(U, W)
+
+
+def accumulator_to_mira(acc):
+    """Port ProtoGalaxy Accumulator -> mira_tpu's."""
+    from mira_tpu.nifs.protogalaxy import Accumulator
+
+    return Accumulator(list(acc.betas), relaxed_trace_to_mira(acc.trace), acc.e)
+
+
+def proof_to_mira(proof):
+    """Port ProtoGalaxyProof -> mira_tpu's."""
+    from mira_tpu.nifs.protogalaxy import ProtoGalaxyProof
+
+    return ProtoGalaxyProof(to_mira(proof.poly_F), to_mira(proof.poly_K))
 
 
 @pytest.fixture
