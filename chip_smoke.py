@@ -38,13 +38,34 @@ Then three paths of the polynomial and hashing side, each at full size:
   only if the verifier's (betas', e, U) equal the prover's and the folded
   trace satisfies F(betas', 0)(0) == e'.
 
+Then the multi-device side (mira_tpu_torch/parallel/) and the other
+generic-base MSM engines (kernels 4-7):
+
+- the generic-base engines against their plain versions and the host MSM
+  at a few hundred points on both curves, and timed at the mesh path's
+  widths on BN254: 2^17 (the cross-term width; against one result of the
+  bucket MSM's plain version) and 2^21 (the SPS commit width; against the
+  bucket kernel and the host MSM);
+- the k=17 path's decider, verify(strict=True), once per engine of
+  kernels 5-7 (CommitmentKey.generic_method), so that each engine's kernel
+  makes the decider's commitments;
+- the mesh path: a second IVC of the k=17 path's public parameters runs two
+  fold_step(mesh=...) on a mesh of one (NCCL, world 1), every commit a
+  sharded MSM through kernel 4 and the cross terms on the column evaluator;
+  after each step both sides' accumulators must equal the single-device
+  IVC's after the same step, and then verify(strict=True);
+- dryrun_multichip(1, "cuda") (parallel/dryrun.py): row-sharded fold and
+  evaluation, the distributed NTT (also at 2^20) == ntt, the sharded MSM ==
+  the host MSM, and a k=9 VanillaFS fold with the mesh == without.
+
 Kernel launches are counted over each path.  The keys of both paths come
-from one background thread started first (the native keygen releases the
-GIL): the k=17 path's 2^21 keys while the kernels build, then SnarkStar's,
-which grow from them by their new rows alone, while the k=17 path runs.
-With --profile DIR it runs one more k=17 fold step under torch.profiler
-and prints the device's busy share of that step and the ops by device
-time.
+from one background thread started right after the build (the native
+keygen releases the GIL): the k=17 path's 2^21 keys while the small checks
+and the NTT and Poseidon paths run, then SnarkStar's, which grow from them
+by their new rows alone, while the k=17 path runs.
+With --profile DIR it runs one more k=17 fold step and one more mesh fold
+step under torch.profiler and prints the device's busy share of each step
+and its ops by device time and by host time.
 
 Prints the device lines, per-phase seconds, one JSON line of kernels, the
 card's name and power limit, and last a JSON line {"ok": true, "device":
@@ -74,6 +95,19 @@ POSEIDON_SIZES = (16, 20)  # log N of the Poseidon path; the last also the tree
 PG_TRACES = 3
 # the kernels the two IVC paths run
 MSM_PATH_KERNELS = ("msm_bucket", "msm_fixed", "fixed_table", "fold_eval")
+MESH_STEPS = 2  # fold_step(mesh=...) of the mesh path
+# the generic-base engines of ops/msm.py `msm` besides the bucket MSM: the
+# kernel's name in the counts, its source and the TPU kernel it replaces
+ENGINES = {
+    "pippenger": ("msm_pippenger", "msm_pippenger.cu", "mira_tpu/ops/pallas_msm.py:486"),
+    "pippenger-u4": ("msm_pippenger_u4", "msm_pippenger.cu",
+                     "mira_tpu/ops/pallas_msm.py:282"),
+    "window": ("msm_window", "msm_lane.cu", "mira_tpu/ops/pallas_msm.py:108"),
+    "lane": ("msm_lane", "msm_lane.cu", "mira_tpu/ops/pallas_msm.py:862"),
+}
+ENGINE_REPS = {"pippenger": 5, "pippenger-u4": 5, "window": 3, "lane": 2}
+# the engines whose path is the k=17 decider (kernel 4's is the mesh path)
+DECIDER_ENGINES = ("pippenger-u4", "window", "lane")
 
 # The card's published peaks, against which each kernel's bound is stated
 # (NVIDIA H100 SXM data sheet): device-memory bytes per second, and int32
@@ -439,7 +473,11 @@ def launch_counts():
             "fixed_table": cuda_msm.table_launches, "fold_eval": fe.launches,
             "ntt_fourstep": cuda_ntt.fourstep_launches,
             "ntt_stage": cuda_ntt.stage_launches,
-            "poseidon": cuda_poseidon.launches}
+            "poseidon": cuda_poseidon.launches,
+            "msm_pippenger": cuda_msm.pippenger_launches,
+            "msm_pippenger_u4": cuda_msm.pippenger_u4_launches,
+            "msm_window": cuda_msm.window_launches,
+            "msm_lane": cuda_msm.lane_launches}
 
 
 def require_launched(counts: dict, names, path: str):
@@ -457,6 +495,8 @@ def reset_launch_counts():
     from mira_tpu_torch.ops import cuda_ntt, cuda_poseidon
 
     cuda_msm.launches = cuda_msm.fixed_launches = cuda_msm.table_launches = 0
+    cuda_msm.pippenger_launches = cuda_msm.pippenger_u4_launches = 0
+    cuda_msm.window_launches = cuda_msm.lane_launches = 0
     fe.launches = 0
     cuda_ntt.fourstep_launches = cuda_ntt.stage_launches = 0
     cuda_poseidon.launches = 0
@@ -996,16 +1036,17 @@ def run_protogalaxy_path(torch, dev, pp, step_circuit):
     return prove_secs, prove_counts
 
 
-def profile_fold_step(torch, ivc, out_dir: str):
-    """One more fold step under torch.profiler.  Prints the step's wall time,
-    the device's busy time (the union of device-event intervals) and its
-    share of the wall, and the ops by device time; writes that table to
-    out_dir/fold_step_profile.txt."""
+def profile_fold_step(torch, ivc, out_dir: str, mesh=None):
+    """One more fold step (with `mesh`, where given) under torch.profiler.
+    Prints the step's wall time, the device's busy time (the union of
+    device-event intervals) and its share of the wall, and the ops by device
+    time and by host time; writes those tables to
+    out_dir/{mesh_,}fold_step_profile.txt."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ivc.fold_step()
+        ivc.fold_step(mesh=mesh)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     ivs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -1022,13 +1063,216 @@ def profile_fold_step(torch, ivc, out_dir: str):
     key = ("device_time_total" if hasattr(ka[0], "device_time_total")
            else "cuda_time_total")
     table = ka.table(sort_by=key, row_limit=40, max_name_column_width=60)
+    host = ka.table(sort_by="self_cpu_time_total", row_limit=25,
+                    max_name_column_width=60)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "fold_step_profile.txt"), "w") as f:
-        f.write(table)
-    log(f"[profile] fold step {ivc.step}: wall {wall_us / 1e6:.4f} s "
+    what = "mesh fold step" if mesh is not None else "fold step"
+    name = ("mesh_" if mesh is not None else "") + "fold_step_profile.txt"
+    with open(os.path.join(out_dir, name), "w") as f:
+        f.write(table + "\n\n" + host)
+    log(f"[profile] {what} {ivc.step}: wall {wall_us / 1e6:.4f} s "
         f"(profiled), {len(ivs)} device events, device busy "
         f"{busy_us / 1e6:.4f} s = {busy_us / wall_us:.4f} of the wall")
     log("\n".join(table.splitlines()[:30]))
+    log(f"[profile] {what}: ops by host time")
+    log("\n".join(host.splitlines()[:20]))
+
+
+def check_msm_engines_small(torch, dev, rng):
+    """Kernels 4-7 against their plain versions on the card and the host MSM
+    at n = 300 on both curves: duplicate bases, a zero scalar, scalars 1,
+    r - 1, 16 (signed digit -16 with a carry), 16 in every 5-bit window and
+    2^250 - 1, and identity padding lanes at the end."""
+    from mira_tpu_torch.convert import msm_reference
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint
+    from mira_tpu_torch.curves.torch_curve import jacobian_ops
+    from mira_tpu_torch.ops.msm import encode_scalars, msm, plain_engine
+
+    n = 300
+    for curve in (BN254_G1, GRUMPKIN):
+        ops = jacobian_ops(curve.name)
+        r = curve.scalar_modulus
+        sc, pts = adversarial_input(curve, n, rng)
+        every = sum(16 << (5 * k) for k in range(50)) % r
+        sc[:6] = [0, 1, r - 1, 16, every, (1 << 250) - 1]
+        pts[-4:] = [AffinePoint.identity(curve)] * 4
+        s = encode_scalars(sc, r, dev)
+        P = ops.encode_points(pts, dev)
+        ref = msm_reference(s, P, curve)
+        for method in ENGINES:
+            got = decode_one(curve, msm(s, P, curve, method))
+            plain = decode_one(curve, plain_engine(method)(s, P, curve))
+            if not (got == plain == ref):
+                raise AssertionError(f"{method} n={n} on {curve.name}: kernel "
+                                     f"{got} plain {plain} host {ref}")
+    log(f"msm engines {list(ENGINES)} at n = {n} (duplicates, zero scalar, 1, "
+        "r - 1, 16, 16 in every window, 2^250 - 1, identity lanes): kernel == "
+        "plain == host on both curves (exact)")
+
+
+def engine_timings(torch, dev, rng, ck, s17, P17, want17, plain17_ms):
+    """Kernels 4-7 at the mesh path's widths on BN254: at 2^17 (the
+    cross-term width) held against `want17`, the bucket MSM's plain version
+    on the same inputs (computed once), and each timed against its own plain
+    version; at 2^21 (the SPS commit width, the key's points) against the
+    bucket kernel and the host MSM.  Returns {method: [entry at 2^17, entry
+    at 2^21]}."""
+    from mira_tpu_torch.convert import msm_reference
+    from mira_tpu_torch.ops import cuda_msm
+    from mira_tpu_torch.ops.msm import msm, plain_engine
+
+    curve = ck.curve
+    out = {m: [] for m in ENGINES}
+    want = point_ints(decode_one(curve, want17))
+    for method in ENGINES:
+        ms = timed_cuda(lambda: msm(s17, P17, curve, method), ENGINE_REPS[method])
+        err = max_abs_err(point_ints(decode_one(curve, msm(s17, P17, curve, method))),
+                          want)
+        plain, plain_ms = timed_once(lambda: plain_engine(method)(s17, P17, curve))
+        err = max(err, max_abs_err(point_ints(decode_one(curve, plain)), want))
+        if err:
+            raise AssertionError(f"{method} 2^17: kernel or plain != msm_plain")
+        out[method].append({"n": 1 << 17, "ms": ms, "plain_ms": plain_ms,
+                            "bucket_plain_ms": plain17_ms, "max_abs_err": err,
+                            **msm_bucket_bound(1 << 17, curve)})
+        log(f"{method} 2^17: {ms:.3f} ms (plain {plain_ms:.1f} ms); == the "
+            "bucket MSM's plain version; bound "
+            f"{out[method][-1]['bound_ms']:.3f} ms")
+    n = 1 << 21
+    s = _random_plain(rng, n, dev)
+    P = ck._enc_slice(n)
+    bucket = point_ints(decode_one(curve, cuda_msm.msm_cuda(s, P, curve)))
+    t0 = time.perf_counter()
+    host = point_ints(msm_reference(s, P, curve))
+    host_s = time.perf_counter() - t0
+    if bucket != host:
+        raise AssertionError("bucket MSM 2^21 != host MSM")
+    for method in ENGINES:
+        ms = timed_cuda(lambda: msm(s, P, curve, method), ENGINE_REPS[method])
+        err = max_abs_err(point_ints(decode_one(curve, msm(s, P, curve, method))),
+                          host)
+        if err:
+            raise AssertionError(f"{method} 2^21: kernel != bucket kernel == host")
+        out[method].append({"n": n, "ms": ms, "plain_ms": None, "max_abs_err": err,
+                            **msm_bucket_bound(n, curve)})
+        log(f"{method} 2^21: {ms:.3f} ms; == bucket kernel == host MSM "
+            f"({host_s:.2f} s); bound {out[method][-1]['bound_ms']:.3f} ms")
+    return out
+
+
+def run_engine_deciders(torch, ivc):
+    """The k=17 path's decider, verify(strict=True), once per engine of
+    DECIDER_ENGINES: the keys' generic_method set to it, so that the decider's
+    commitments (witness and error vectors, up to 2^21 points) go through
+    its kernel.  Returns {method: (seconds, counts)}."""
+    keys = (ivc.pp.primary.ck, ivc.pp.secondary.ck)
+    out = {}
+    for method in DECIDER_ENGINES:
+        name = ENGINES[method][0]
+        for ck in keys:
+            ck.generic_method = method
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ivc.verify(strict=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        require_launched(counts, (name,), f"the decider with generic_method={method}")
+        out[method] = (secs, counts)
+        log(f"decider with generic_method={method}: verify(strict=True) passed "
+            f"in {secs:.3f} s; {name} launches {counts[name]}")
+    for ck in keys:
+        ck.generic_method = "bucket"
+    return out
+
+
+def accumulators(ivc):
+    """Both sides' accumulators (instance, witness rounds, error vector)."""
+    return [(t.U, list(t.W.W), t.W.E) for t in
+            (ivc.primary.relaxed_trace, ivc.secondary.relaxed_trace)]
+
+
+def same_accumulators(a, b) -> bool:
+    import torch
+
+    return all(Ua == Ub and len(Wa) == len(Wb)
+               and all(torch.equal(x, y) for x, y in zip(Wa, Wb))
+               and torch.equal(Ea, Eb)
+               for (Ua, Wa, Ea), (Ub, Wb, Eb) in zip(a, b))
+
+
+def run_mesh_path(torch, dev, pp, sc1, sc2, single, profile_dir=None):
+    """A second IVC of the k=17 path's public parameters folded MESH_STEPS
+    times with fold_step(mesh=...) on a mesh of one; after each step its
+    accumulators must equal the single-device IVC's (`single`, recorded
+    after each of its steps); with `profile_dir`, one more step under
+    torch.profiler; then verify(strict=True).  Returns (step seconds, launch
+    counts over the checked steps, peak bytes, verify seconds)."""
+    from mira_tpu_torch.parallel.mesh import make_mesh
+
+    with make_mesh(1, dev) as mesh:
+        return _mesh_steps(torch, mesh, pp, sc1, sc2, single, profile_dir)
+
+
+def _mesh_steps(torch, mesh, pp, sc1, sc2, single, profile_dir):
+    from mira_tpu_torch.ivc.ivc import IVC
+    from mira_tpu_torch.utils import tracing
+
+    t0 = time.perf_counter()
+    ivc = IVC(pp, sc1, [0], sc2, [0])
+    torch.cuda.synchronize()
+    log(f"mesh path: mesh of {mesh.size} on {mesh.device}; zero step "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    tracing.reset()
+    reset_launch_counts()
+    secs = []
+    for i in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        ivc.fold_step(mesh=mesh)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not same_accumulators(accumulators(ivc), single[i]):
+            raise AssertionError(f"mesh fold step {i + 1}: accumulators differ "
+                                 "from the single-device IVC's")
+        log(f"mesh fold step {i + 1}: {secs[-1]:.3f} s; both sides' "
+            "accumulators == the single-device IVC's after its step "
+            f"{i + 1}")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log("host span tree of the mesh fold steps:")
+    log(tracing.report(min_runtime=0.01))
+    require_launched(counts, ("msm_pippenger",), "the mesh path")
+    if counts["msm_fixed"] or counts["fold_eval"] or counts["fixed_table"]:
+        raise AssertionError(f"the mesh steps ran a single-device kernel: {counts}")
+    if profile_dir:
+        profile_fold_step(torch, ivc, profile_dir, mesh)
+    t0 = time.perf_counter()
+    ivc.verify(strict=True)
+    torch.cuda.synchronize()
+    ver = time.perf_counter() - t0
+    log(f"mesh path: fold steps (s) {secs}; launches over them {counts}; peak "
+        f"device memory {peak / 2**30:.3f} GiB; verify(strict=True) passed in "
+        f"{ver:.3f} s")
+    return secs, counts, peak, ver
+
+
+def run_dryrun(torch, dev):
+    """dryrun_multichip(1, cuda) with a 2^20 distributed NTT; returns its
+    seconds and the launch counts over it."""
+    from mira_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    reset_launch_counts()
+    secs = dryrun_multichip(1, str(dev), ntt_log_n=20)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"dryrun_multichip(1, cuda): fold/eval rows, distributed NTT (2^6, "
+        f"2^20) == ntt, sharded MSM == host, k=9 mesh fold == single-device "
+        f"fold, is_sat_relaxed: all passed; seconds {json.dumps(secs)}; "
+        f"launches {counts}")
+    require_launched(counts, ("msm_pippenger", "ntt_fourstep", "ntt_stage"),
+                     "the dryrun")
+    return secs, counts
 
 
 def main() -> int:
@@ -1036,8 +1280,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="after the checks, profile one more fold step and "
-                         "write its table of device time to DIR")
+                    help="profile one more fold step and one more mesh fold "
+                         "step and write their tables of device and host "
+                         "time to DIR")
     args = ap.parse_args()
     try:
         import torch
@@ -1078,10 +1323,6 @@ def main() -> int:
 
     t0 = time.perf_counter()
     card = device_lines(torch)
-    # the k=17 path's keys first; SnarkStar's grow from them
-    key_specs = [(BN254_G1, K + 4, "bn256"), (GRUMPKIN, K + 4, "grumpkin"),
-                 (BN254_G1, 23, "bn256"), (GRUMPKIN, 24, "grumpkin")]
-    keygen = start_keygen(key_specs)
     phase("device", t0)
 
     t0 = time.perf_counter()
@@ -1092,6 +1333,11 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     phase("build", t0)
+    # the keys after the build, whose nvcc processes want every core: the
+    # k=17 path's first, then SnarkStar's, which grow from them
+    key_specs = [(BN254_G1, K + 4, "bn256"), (GRUMPKIN, K + 4, "grumpkin"),
+                 (BN254_G1, 23, "bn256"), (GRUMPKIN, 24, "grumpkin")]
+    keygen = start_keygen(key_specs)
 
     t0 = time.perf_counter()
     check_field_kernels(torch, dev, rng)
@@ -1099,6 +1345,7 @@ def main() -> int:
     check_fixed_small(torch, dev, rng)
     check_ntt_small(torch, dev, rng)
     check_poseidon_small(torch, dev, rng)
+    check_msm_engines_small(torch, dev, rng)
     phase("kernel_checks_small", t0)
 
     # -- the NTT and Poseidon paths need no key: they run while the keys are made
@@ -1150,11 +1397,13 @@ def main() -> int:
     tracing.reset()
     reset_launch_counts()
     step_secs = []
+    single = []  # the accumulators after each step, for the mesh path
     for _ in range(FOLD_STEPS):
         t0 = time.perf_counter()
         ivc.fold_step()
         torch.cuda.synchronize()
         step_secs.append(time.perf_counter() - t0)
+        single.append(accumulators(ivc))
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"fold steps (s): {step_secs}")
@@ -1186,6 +1435,7 @@ def main() -> int:
     err = max_abs_err(point_ints(got), point_ints(decode_one(BN254_G1, want)))
     if err:
         raise AssertionError(f"bucket MSM 2^{K}: kernel != plain")
+    bucket_plain17, bucket_plain17_ms = want, ms_p  # shared by kernels 4-7
     kernels.append({
         "name": "msm_bucket", "route": "cuda",
         "source": "mira_tpu_torch/csrc/msm_bucket.cu",
@@ -1260,6 +1510,45 @@ def main() -> int:
         "shape": f"N={head['n']} {head['curve']}, w={head['window']}", "at": tab_at,
     })
     phase("kernel_timing", t0)
+
+    # -- kernels 4-7: timings at the mesh path's widths, their paths ----------
+    t0 = time.perf_counter()
+    engine_at = engine_timings(torch, dev, rng, ck1, s, P, bucket_plain17,
+                               bucket_plain17_ms)
+    phase("msm_engine_timing", t0)
+    t0 = time.perf_counter()
+    deciders = run_engine_deciders(torch, ivc)
+    phase("msm_engine_deciders", t0)
+    t0 = time.perf_counter()
+    mesh_secs, mesh_counts, mesh_peak, mesh_verify = run_mesh_path(
+        torch, dev, pp, sc1, sc2, single, args.profile)
+    phase("mesh_path", t0)
+    del single
+    t0 = time.perf_counter()
+    dry_secs, dry_counts = run_dryrun(torch, dev)
+    phase("dryrun", t0)
+    for method, (name, src, replaces) in ENGINES.items():
+        at = engine_at[method]
+        if method in deciders:
+            launches = {"launches": deciders[method][1][name],
+                        "path": f"the k={K} decider, generic_method={method}"}
+        else:
+            launches = {"launches": mesh_counts[name],
+                        "path": f"{MESH_STEPS} k={K} fold_step(mesh=) on a mesh of 1",
+                        "launches_dryrun": dry_counts[name]}
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"mira_tpu_torch/csrc/{src}",
+            "replaces": replaces, **launches,
+            "max_abs_err": max(a["max_abs_err"] for a in at),
+            "ms": at[0]["ms"], "plain_ms": at[0]["plain_ms"],
+            "bound_ms": at[0]["bound_ms"], "bound_by": at[0]["bound_by"],
+            "library_ms": None,
+            "shape": f"N=2^{K} bn254 (the cross-term width), full-width scalars",
+            "at": at,
+        })
+    mesh_summary = {"step_s": mesh_secs, "verify_s": mesh_verify,
+                    "peak_gib": mesh_peak / 2**30, "dryrun_s": dry_secs}
+    log(f"mesh path summary: {json.dumps(mesh_summary)}")
 
     # -- ProtoGalaxy at k=17 on the path's structure and key ---------------------
     t0 = time.perf_counter()
@@ -1365,6 +1654,16 @@ def main() -> int:
 
     if "jax" in sys.modules or "mira_tpu" in sys.modules:
         raise AssertionError("jax or mira_tpu was imported")
+    # the kernels by what they lose against their bound over this run's paths
+    lost = {}
+    for k in kernels:
+        n = sum(v for key, v in k.items() if key.startswith("launches")
+                and isinstance(v, int))
+        lost[k["name"]] = (n * (k["ms"] - k["bound_ms"]), n)
+    log("ms lost to the bound, launches x (ms - bound_ms) over the paths, "
+        "largest first: " + json.dumps(
+            {name: [round(v, 3), n] for name, (v, n) in
+             sorted(lost.items(), key=lambda kv: -kv[1][0])}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

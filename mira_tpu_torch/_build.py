@@ -42,9 +42,12 @@ _SIGNATURES = {
                        _P],
     "mira_msm_fixed": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "mira_fixed_table": [_I, _P, _P, _P, _I, _I, _P, _P],
-    "mira_ntt_stage": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
-    "mira_ntt_fourstep": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "mira_ntt_stage": [_I, _P, _P, _P, _I, _I, _I, _P, _I, _P],
+    "mira_ntt_fourstep": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
     "mira_poseidon": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "mira_msm_pippenger": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _P],
+    "mira_msm_lane": [_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 

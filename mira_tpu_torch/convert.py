@@ -81,6 +81,14 @@ def to_plain(v):
     raise TypeError(f"no plain form for {type(v).__name__}")
 
 
+def relaxed_trace_plain(t) -> dict:
+    """A relaxed trace of either package as plain data: its instance by
+    `to_plain`, its witness rounds and error vector as lists of ints."""
+    lf = t.W.lf
+    return {"U": to_plain(t.U), "W": [lf.decode(w) for w in t.W.W],
+            "E": lf.decode(t.W.E)}
+
+
 def from_plain(d):
     """The port's object for plain data made by `to_plain` (a dataclass's
     dict stays a dict: its caller knows the class)."""

@@ -25,6 +25,11 @@
 // it is the product of two entries of tables of n2 and n1 powers,
 // w^(e mod n2) and (w^n2)^(e div n2), 2*sqrt(n) elements in all.
 //
+// A batch of transforms of one size (the row transforms of the distributed
+// NTT, parallel/ntt.py) is one launch pair: the batch index is the grid's
+// second dimension, and transform b reads and writes its n elements at
+// offset b*n of the input, scratch and output.
+//
 // Shared memory holds the column word-major (word w of element e at
 // w*m + e), so that a warp's accesses to consecutive elements fall in
 // consecutive banks.  m = 4096 elements take 128 KiB, above the 48 KiB a
@@ -58,16 +63,20 @@ __device__ __forceinline__ void sm_store(uint32_t* sm, int m, int e,
 // log_m stages of its size-m transform, then out[c*out_cs + r*out_rs].
 // With mid_a != null the result is first multiplied by w^(c*r), taken as
 // mid_a[e & (2^log_a - 1)] * mid_b[e >> log_a]; with scale != null, by it.
+// Transform blockIdx.y of a batch works at offset blockIdx.y * bstride
+// elements of in and out.
 template <class F>
 __global__ void ntt_columns_kernel(const uint32_t* in, uint32_t* out,
                                    int log_m, size_t in_rs, size_t out_cs,
                                    size_t out_rs, const uint32_t* tw,
                                    const uint32_t* mid_a,
                                    const uint32_t* mid_b, int log_a,
-                                   const uint32_t* scale) {
+                                   const uint32_t* scale, size_t bstride) {
   extern __shared__ uint32_t sm[];
   const int m = 1 << log_m;
   const size_t c = blockIdx.x;
+  in += blockIdx.y * bstride * 8;
+  out += blockIdx.y * bstride * 8;
   for (int r = threadIdx.x; r < m; r += blockDim.x) {
     int e = (int)(__brev((unsigned)r) >> (32 - log_m));
     sm_store(sm, m, e, fe_load_v(in + (c + (size_t)r * in_rs) * 8));
@@ -106,7 +115,7 @@ static int launch_fourstep(const uint32_t* in, uint32_t* tmp, uint32_t* out,
                            int l1, int l2, const uint32_t* tw1,
                            const uint32_t* tw2, const uint32_t* mid_a,
                            const uint32_t* mid_b, const uint32_t* scale,
-                           cudaStream_t s) {
+                           int batch, cudaStream_t s) {
   const size_t n1 = (size_t)1 << l1, n2 = (size_t)1 << l2;
   const size_t smem1 = 32 * n2, smem2 = 32 * n1;
   cudaError_t err = cudaFuncSetAttribute(
@@ -118,36 +127,36 @@ static int launch_fourstep(const uint32_t* in, uint32_t* tmp, uint32_t* out,
     return (unsigned)(t < 32 ? 32 : (t > 512 ? 512 : t));
   };
   // columns i1 of the (n2, n1) view of the input -> rows of tmp (n1, n2)
-  ntt_columns_kernel<F><<<(unsigned)n1, threads(n2), smem1, s>>>(
-      in, tmp, l2, n1, n2, 1, tw1, mid_a, mid_b, l2, nullptr);
+  ntt_columns_kernel<F><<<dim3((unsigned)n1, batch), threads(n2), smem1, s>>>(
+      in, tmp, l2, n1, n2, 1, tw1, mid_a, mid_b, l2, nullptr, n1 * n2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // columns k2 of tmp (n1, n2) -> X[k1*n2 + k2]
-  ntt_columns_kernel<F><<<(unsigned)n2, threads(n1), smem2, s>>>(
-      tmp, out, l1, n2, 1, n2, tw2, nullptr, nullptr, 0, scale);
+  ntt_columns_kernel<F><<<dim3((unsigned)n2, batch), threads(n1), smem2, s>>>(
+      tmp, out, l1, n2, 1, n2, tw2, nullptr, nullptr, 0, scale, n1 * n2);
   return (int)cudaGetLastError();
 }
 
-// field 0: Fq, 1: Fr.  in, tmp, out: (2^log_n, 8) Montgomery words, three
-// different buffers; tw1: (n2/2, 8) powers of w^n1; tw2: (max(n1/2, 1), 8)
+// field 0: Fq, 1: Fr.  in, tmp, out: (batch, 2^log_n, 8) Montgomery words,
+// three different buffers, batch in 1..65535; tw1: (n2/2, 8) powers of w^n1; tw2: (max(n1/2, 1), 8)
 // powers of w^n2; mid_a: (n2, 8) powers of w; mid_b: (n1, 8) powers of
 // w^n2; scale: one element (the inverse's 1/n) or null.
 extern "C" int mira_ntt_fourstep(int field, const void* in, void* tmp,
                                  void* out, int log_n, const void* tw1,
                                  const void* tw2, const void* mid_a,
                                  const void* mid_b, const void* scale,
-                                 void* stream) {
+                                 int batch, void* stream) {
   // a column of 2^12 elements is the most that fits in shared memory
-  if (log_n < 2 || log_n > 24) return 1;
+  if (log_n < 2 || log_n > 24 || batch < 1 || batch > 65535) return 1;
   const int l1 = log_n / 2, l2 = log_n - l1;
   cudaStream_t s = (cudaStream_t)stream;
   if (field == 0)
     return launch_fourstep<Fq>(
         (const uint32_t*)in, (uint32_t*)tmp, (uint32_t*)out, l1, l2,
         (const uint32_t*)tw1, (const uint32_t*)tw2, (const uint32_t*)mid_a,
-        (const uint32_t*)mid_b, (const uint32_t*)scale, s);
+        (const uint32_t*)mid_b, (const uint32_t*)scale, batch, s);
   return launch_fourstep<Fr>(
       (const uint32_t*)in, (uint32_t*)tmp, (uint32_t*)out, l1, l2,
       (const uint32_t*)tw1, (const uint32_t*)tw2, (const uint32_t*)mid_a,
-      (const uint32_t*)mid_b, (const uint32_t*)scale, s);
+      (const uint32_t*)mid_b, (const uint32_t*)scale, batch, s);
 }

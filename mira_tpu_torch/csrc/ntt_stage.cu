@@ -10,7 +10,9 @@
 // first stage can gather its inputs through the bit reversal and the last
 // can multiply by the inverse transform's 1/n, so neither is a pass of its
 // own.  A stage may run in place (each thread owns its pair) unless it
-// gathers.
+// gathers.  A batch of transforms of one size is one launch: thread b of
+// the grid is butterfly b mod n/2 of transform b div n/2, whose n elements
+// lie at offset (b div n/2) * n.
 //
 // Bound on the card: a stage reads and writes every element once (64 B per
 // element) and does one Montgomery product per pair; at 2^20 elements that is
@@ -25,10 +27,15 @@ using namespace mira;
 template <class F>
 __global__ void ntt_stage_kernel(const uint32_t* in, uint32_t* out,
                                  const uint32_t* tw, int log_n, int log_half,
-                                 int gather, const uint32_t* scale) {
+                                 int gather, const uint32_t* scale,
+                                 size_t total) {
   size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= total) return;
   size_t pairs = (size_t)1 << (log_n - 1);
-  if (b >= pairs) return;
+  size_t off = (b >> (log_n - 1)) << log_n;  // the transform's first element
+  in += off * 8;
+  out += off * 8;
+  b &= pairs - 1;
   size_t half = (size_t)1 << log_half;
   size_t k = b & (half - 1);
   size_t i = ((b >> log_half) << (log_half + 1)) + k;
@@ -53,25 +60,27 @@ __global__ void ntt_stage_kernel(const uint32_t* in, uint32_t* out,
   fe_store_v(out + j * 8, y);
 }
 
-// field 0: Fq, 1: Fr.  in, out: (2^log_n, 8) Montgomery words (the same
-// buffer unless gather != 0); tw: (2^(log_n-1), 8) twiddle powers; scale:
-// one element or null.
+// field 0: Fq, 1: Fr.  in, out: (batch, 2^log_n, 8) Montgomery words (the
+// same buffer unless gather != 0); tw: (2^(log_n-1), 8) twiddle powers;
+// scale: one element or null.
 extern "C" int mira_ntt_stage(int field, const void* in, void* out,
                               const void* tw, int log_n, int log_half,
-                              int gather, const void* scale, void* stream) {
+                              int gather, const void* scale, int batch,
+                              void* stream) {
   if (log_n < 1 || log_n > 30 || log_half < 0 || log_half >= log_n) return 1;
   if (gather && in == out) return 1;
+  if (batch < 1) return 1;
   const int T = 256;
-  size_t pairs = (size_t)1 << (log_n - 1);
-  unsigned blocks = (unsigned)((pairs + T - 1) / T);
+  size_t total = (size_t)batch << (log_n - 1);
+  unsigned blocks = (unsigned)((total + T - 1) / T);
   cudaStream_t s = (cudaStream_t)stream;
   if (field == 0)
     ntt_stage_kernel<Fq><<<blocks, T, 0, s>>>(
         (const uint32_t*)in, (uint32_t*)out, (const uint32_t*)tw, log_n,
-        log_half, gather, (const uint32_t*)scale);
+        log_half, gather, (const uint32_t*)scale, total);
   else
     ntt_stage_kernel<Fr><<<blocks, T, 0, s>>>(
         (const uint32_t*)in, (uint32_t*)out, (const uint32_t*)tw, log_n,
-        log_half, gather, (const uint32_t*)scale);
+        log_half, gather, (const uint32_t*)scale, total);
   return (int)cudaGetLastError();
 }

@@ -211,8 +211,10 @@ class IVC:
 
     # ------------------------------------------------------------------
     @instrument
-    def fold_step(self):
-        """One IVC step (reference ivc :385-562)."""
+    def fold_step(self, mesh=None):
+        """One IVC step (reference ivc :385-562).  With a mesh
+        (parallel/mesh.py), as mira_tpu's: the cross terms, every commit and
+        the witness folds of both sides are sharded across its ranks."""
         pp = self.pp
         p_mod = pp.primary_curve.scalar_modulus
         s_mod = pp.secondary_curve.scalar_modulus
@@ -220,7 +222,7 @@ class IVC:
         # 1. fold secondary accumulator with the last secondary trace
         secondary_new_trace, secondary_cross_commits = VanillaFS.prove(
             pp.secondary.ck, self.secondary_nifs_pp, self._primary_ro(),
-            self.secondary.relaxed_trace, self.secondary_trace,
+            self.secondary.relaxed_trace, self.secondary_trace, mesh=mesh,
         )
 
         # 2. primary SFC over the secondary fold
@@ -258,13 +260,13 @@ class IVC:
 
         primary_trace = VanillaFS.generate_plonk_trace(
             pp.primary.ck, primary_instance, primary_witness,
-            self.primary_nifs_pp, self._secondary_ro(),
+            self.primary_nifs_pp, self._secondary_ro(), mesh=mesh,
         )
 
         # 3. fold primary accumulator
         primary_new_trace, primary_cross_commits = VanillaFS.prove(
             pp.primary.ck, self.primary_nifs_pp, self._secondary_ro(),
-            self.primary.relaxed_trace, primary_trace,
+            self.primary.relaxed_trace, primary_trace, mesh=mesh,
         )
 
         # 4. secondary SFC over the primary fold
@@ -302,7 +304,7 @@ class IVC:
 
         self.secondary_trace = VanillaFS.generate_plonk_trace(
             pp.secondary.ck, secondary_instance, secondary_witness,
-            self.secondary_nifs_pp, self._primary_ro(),
+            self.secondary_nifs_pp, self._primary_ro(), mesh=mesh,
         )
         self.step += 1
 

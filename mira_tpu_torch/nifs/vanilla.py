@@ -9,6 +9,12 @@ the combine runs as elementwise field ops on the witness device.  The Gt
 cross terms are the real pairing cross terms of the structure's Groth16
 context where one is attached, else the reference's seeded random
 Tuple12s, drawn from `rng` in mira_tpu's order.
+
+With a mesh (parallel/mesh.py), as mira_tpu's mesh prove: each rank
+evaluates its block of rows with the column evaluator (the fold evaluator
+kernel is a single-device program), combines its block of the cross terms,
+gathers the blocks whole, and commits them by sharded MSMs; the witness
+fold is row-sharded too (plonk/structure.py).
 """
 
 from __future__ import annotations
@@ -117,7 +123,8 @@ class VanillaFS:
     @instrument
     def commit_cross_terms(ck, S: PlonkStructure, U1: RelaxedPlonkInstance,
                            W1: RelaxedPlonkWitness, U2: PlonkInstance,
-                           W2: PlonkWitness, rng=None, assume_sat: bool = True):
+                           W2: PlonkWitness, rng=None, assume_sat: bool = True,
+                           mesh=None):
         rng = rng or random.Random(0xC405)
         p = S.modulus
         lf = S.lf
@@ -130,7 +137,15 @@ class VanillaFS:
             js = list(range(1, d))
         else:
             js = list(range(d + 1))
-        if js:
+        nrow = W1.E.shape[0]
+        lo, hi = (0, nrow) if mesh is None else mesh.rows(nrow)
+        if js and mesh is not None:
+            ev = S._evaluator("homogeneous", W1.E.device)
+            with span("cross_term_eval"):
+                evals = [ev.fold_eval(W1.W, W2.W, j,
+                                      [(a + j * b) % p for a, b in zip(ch1, ch2)],
+                                      rows=(lo, hi)) for j in js]
+        elif js:
             ev = S.fold_evaluator(W1.E.device)
             with span("cross_term_eval"):
                 outs = ev.fold_eval_multi(W1.W, W2.W, js, ch1, ch2)
@@ -139,15 +154,17 @@ class VanillaFS:
             evals = []
         with span("cross_term_combine"):
             if assume_sat and d >= 1:
-                cross_terms = combine_slices_sat(lf, evals, W1.E)
+                cross_terms = combine_slices_sat(lf, evals, W1.E[lo:hi])
             else:
                 cross_terms = combine_slices(lf, evals)
+            if mesh is not None:
+                cross_terms = [mesh.gather_rows(t, nrow) for t in cross_terms]
 
         skip_last = assume_sat and d >= 1
         with span("cross_term_commit"):
             # T_d = 0 on satisfied traces: its commitment is the identity
             terms = cross_terms[:-1] if skip_last else cross_terms
-            decode = ck.commit_device_many(terms, defer=True)
+            decode = ck.commit_device_many(terms, mesh=mesh, defer=True)
         if S.groth16_ctx is not None:
             # host pairings while the cross-term MSMs run on the device
             with span("gt_cross_terms"):
@@ -186,25 +203,28 @@ class VanillaFS:
     @staticmethod
     @instrument
     def generate_plonk_trace(ck, instance, witness, pp: VanillaFSProverParam,
-                             ro_nark, rng=None) -> PlonkTrace:
-        return pp.S.run_sps_protocol(ck, instance, witness, ro_nark, rng=rng)
+                             ro_nark, rng=None, mesh=None) -> PlonkTrace:
+        return pp.S.run_sps_protocol(ck, instance, witness, ro_nark, rng=rng,
+                                     mesh=mesh)
 
     @staticmethod
     @instrument
     def prove(ck, pp: VanillaFSProverParam, ro_acc,
-              accumulator: RelaxedPlonkTrace, incoming: PlonkTrace, rng=None):
+              accumulator: RelaxedPlonkTrace, incoming: PlonkTrace, rng=None,
+              mesh=None):
         """Fold `incoming` into `accumulator`.  Contract (as in mira_tpu):
         the accumulator satisfies its relaxed relation and `incoming` its
-        plain relation; cross terms rely on both."""
+        plain relation; cross terms rely on both.  With a mesh, the cross
+        terms, their commits and the witness fold are sharded."""
         U1, W1 = accumulator.U, accumulator.W
         U2, W2 = incoming.u, incoming.w
         cross_terms, (g1_commits, gt_commits) = VanillaFS.commit_cross_terms(
-            ck, pp.S, U1, W1, U2, W2, rng=rng)
+            ck, pp.S, U1, W1, U2, W2, rng=rng, mesh=mesh)
         r = VanillaFS.generate_challenge(pp.pp_digest, ro_acc, U1, U2,
                                          g1_commits, gt_commits)
         U = U1.fold(U2, g1_commits, gt_commits, r)
         with span("witness_fold"):
-            W = W1.fold(W2, cross_terms, r)
+            W = W1.fold(W2, cross_terms, r, mesh=mesh)
         return RelaxedPlonkTrace(U, W), (g1_commits, gt_commits)
 
     @staticmethod

@@ -11,9 +11,16 @@ Which commitment takes which MSM is mira_tpu's default configuration
 recurring widths of `commit_device_many` (the cross terms) run the
 fixed-base MSM over a multiples table, built for a width on its second
 sighting; one-shot full-width commits (`commit_device`, `commit_ints`: the
-zero step, templates, the decider) always run the bucket MSM.  A table is
-built only while it takes at most half of the memory free on its device;
-a width that does not fit runs the bucket MSM and counts in `fb_skipped`.
+zero step, templates, the decider) always run a generic-base MSM.  A table
+is built only while it takes at most half of the memory free on its device;
+a width that does not fit runs the generic-base MSM and counts in
+`fb_skipped`.  The generic-base engine is the key's `generic_method`
+(ops/msm.py `msm`'s method names; mira_tpu reads it from MIRA_MSM_GENERIC),
+by default the bucket MSM, mira_tpu's default on an accelerator.
+
+With a mesh (parallel/mesh.py), `commit_device` and `commit_device_many`
+build no table: every commit is a sharded MSM (parallel/msm.py), each rank
+summing its block of the points, as mira_tpu's mesh commits do.
 
 Template commitments persist in a directory of the port's own, keyed by
 curve, label, hash-to-curve and a digest of the key, never in mira_tpu's
@@ -38,8 +45,8 @@ from ..fields.host import field
 from ..curves.torch_curve import jacobian_ops
 from ..fields.limbs import limb_field
 from ..utils.tracing import span
-from .cuda_msm import fixed_table, msm, msm_fixed
-from .msm import encode_scalars, fixed_base_window
+from .cuda_msm import fixed_table, msm_fixed
+from .msm import METHODS, encode_scalars, fixed_base_window, msm
 
 HTC = "svdw"  # hash-to-curve of the key files (mira_tpu's default)
 DELTA_WINDOW = 5  # table window of the delta commitments (mira_tpu's)
@@ -162,10 +169,14 @@ def _free_bytes(device: torch.device) -> int:
 
 
 class CommitmentKey:
-    def __init__(self, curve: CurveParams, limbs: np.ndarray, device="cpu"):
-        """limbs: (n, 2, 16) uint32 raw (non-Montgomery) affine coordinates."""
+    def __init__(self, curve: CurveParams, limbs: np.ndarray, device="cuda",
+                 generic_method: str = "bucket"):
+        """limbs: (n, 2, 16) uint32 raw (non-Montgomery) affine coordinates;
+        generic_method: the engine of every generic-base commit (ops/msm.py
+        `msm`)."""
         self.curve = curve
         self.device = torch.device(device)
+        self.generic_method = generic_method
         self._limbs = np.ascontiguousarray(limbs, dtype=np.uint32)
         self._enc_cache = None
         self._fb_tables = {}  # padded MSM width -> (window, table)
@@ -173,6 +184,16 @@ class CommitmentKey:
         self._delta_cache = {}  # tape uid -> (C_template, table, points)
         self._aux_dir: Optional[str] = None  # derived-artifact disk home
         self.fb_skipped = 0  # tables not built because they did not fit
+
+    @property
+    def generic_method(self) -> str:
+        return self._generic_method
+
+    @generic_method.setter
+    def generic_method(self, method: str):
+        if method not in METHODS:
+            raise ValueError(f"generic_method {method!r} not in {METHODS}")
+        self._generic_method = method
 
     def __len__(self):
         return self._limbs.shape[0]
@@ -197,13 +218,13 @@ class CommitmentKey:
 
     @classmethod
     def setup(cls, curve: CurveParams, k: int, label: bytes = b"",
-              device="cpu") -> "CommitmentKey":
+              device="cuda") -> "CommitmentKey":
         return cls(curve, _key_rows(curve, label, 0, 1 << k), device)
 
     @classmethod
     def load_or_setup_cache(cls, curve: CurveParams, k: int, label: str,
                             cache_dir: str = ".cache/ck",
-                            device="cpu") -> "CommitmentKey":
+                            device="cuda") -> "CommitmentKey":
         def _path(kk):
             return os.path.join(cache_dir, curve.name, label, f"{kk}-{HTC}.npy")
 
@@ -245,28 +266,47 @@ class CommitmentKey:
         ops = jacobian_ops(self.curve.name)
         return ops.decode_points(tuple(c[None] for c in out))[0]
 
+    def _msm_generic(self, scalars, points):
+        return msm(scalars, points, self.curve, self.generic_method)
+
     def commit_ints(self, values: List[int]) -> AffinePoint:
-        """Commit to raw scalar ints (host API; bucket MSM)."""
+        """Commit to raw scalar ints (host API; the generic-base MSM)."""
         if len(values) > len(self):
             raise ValueError(f"input too long: {len(values)} > key size {len(self)}")
         sc = encode_scalars(values, self.curve.scalar_modulus, self.device)
-        return self._decode(msm(sc, self._enc_slice(sc.shape[0]), self.curve))
+        return self._decode(self._msm_generic(sc, self._enc_slice(sc.shape[0])))
 
-    def commit_device(self, witness_mont) -> AffinePoint:
+    def commit_device(self, witness_mont, mesh=None) -> AffinePoint:
         """Commit to a Montgomery word vector on the key's device: a one-shot
-        full-width commit, so the bucket MSM, never a table."""
+        full-width commit, so the generic-base MSM, never a table.  With a
+        mesh, a sharded MSM over the vector zero-padded to a power of two
+        (at least the mesh size, at most the key size), as in mira_tpu."""
         n = witness_mont.shape[0]
         if n > len(self):
             raise ValueError(f"input too long: {n} > key size {len(self)}")
         lf = limb_field(self.curve.scalar_modulus)
-        return self._decode(msm(lf.to_plain(witness_mont), self._enc_slice(n),
-                                self.curve))
+        scalars = lf.to_plain(witness_mont)
+        if mesh is None:
+            return self._decode(self._msm_generic(scalars, self._enc_slice(n)))
+        from ..parallel.msm import sharded_msm
 
-    def commit_device_many(self, vectors, defer=False):
+        n_pad = min(max(1 << max((n - 1).bit_length(), 0), mesh.size), len(self))
+        if n_pad < n:
+            n_pad = len(self)
+        if n_pad > n:
+            scalars = torch.cat((scalars, scalars.new_zeros(n_pad - n, scalars.shape[1])))
+        return self._decode(sharded_msm(scalars, self._enc_slice(n_pad), self.curve,
+                                        mesh))
+
+    def commit_device_many(self, vectors, mesh=None, defer=False):
         """Commit several Montgomery vectors (the recurring cross-term
         widths), decoding all results after the last MSM is queued.  With
         defer=True, returns a zero-arg callable that decodes, so the caller
-        can do host work meanwhile."""
+        can do host work meanwhile.  With a mesh, each is a sharded
+        `commit_device` (no tables)."""
+        if mesh is not None:
+            pts = [self.commit_device(v, mesh=mesh) for v in vectors]
+            return (lambda: pts) if defer else pts
         lf = limb_field(self.curve.scalar_modulus)
         outs = []
         with span("ct_msm_dispatch"):
@@ -293,7 +333,7 @@ class CommitmentKey:
             n_pad = len(self)
         tab = self._fixed_table(n_pad)
         if tab is None:
-            return msm(scalars, self._enc_slice(n), self.curve)
+            return self._msm_generic(scalars, self._enc_slice(n))
         window, table = tab
         if n_pad > n:
             scalars = torch.cat((scalars, scalars.new_zeros(n_pad - n, scalars.shape[1])))
@@ -363,7 +403,7 @@ class CommitmentKey:
             if table is not None:
                 out = msm_fixed(delta, table, self.curve, DELTA_WINDOW)
             else:
-                out = msm(delta, gpts, self.curve)
+                out = self._msm_generic(delta, gpts)
 
         def _materialize():
             with span("delta_decode"):

@@ -1,11 +1,16 @@
 """MSM kernels on the card: the bucket MSM (csrc/msm_bucket.cu), the port
 of mira_tpu/ops/pallas_msm.py `msm_pallas(method="bucket")`; the fixed-base
-MSM (csrc/msm_fixed.cu), the port of `msm_pallas_fixed`; and its multiples
-table (csrc/fixed_table.cu), the port of `precompute_fixed_table`.
+MSM (csrc/msm_fixed.cu), the port of `msm_pallas_fixed`; its multiples
+table (csrc/fixed_table.cu), the port of `precompute_fixed_table`; the
+shared-Horner Pippenger (csrc/msm_pippenger.cu), the port of
+`msm_pallas(method="pippenger" / "pippenger-u4")`; and the per-lane
+double-and-add (csrc/msm_lane.cu), the port of `msm_pallas(method="window")`
+and of its bit-serial kernel ("lane").
 
-`msm`, `msm_fixed` and `fixed_table` take a CPU tensor to the plain version
-(ops/msm.py) and a CUDA tensor to the kernel; there is no fallback between
-the two.
+ops/msm.py `msm(..., method=)` takes a CPU tensor to an engine's plain
+version and a CUDA tensor to its kernel here; `msm_fixed` and
+`fixed_table` do the same for the fixed-base kernels.  There is no
+fallback between the two.
 """
 
 from __future__ import annotations
@@ -21,16 +26,23 @@ from .. import _build
 from ..fields.limbs import NUM_WORDS
 from .msm import (
     NBUCKET,
+    PIPPENGER_WINDOW,
     WINDOW,
     msm_fixed_plain,
-    msm_plain,
     num_windows,
+    pippenger_windows,
     precompute_fixed_table_plain,
 )
 
 launches = 0  # bucket-MSM kernel launches (one per MSM on the card)
 fixed_launches = 0  # fixed-base MSM launches
 table_launches = 0  # multiples-table builds
+pippenger_launches = 0  # kernel 4 (signed 5-bit Pippenger) MSMs
+pippenger_u4_launches = 0  # kernel 5 (unsigned 4-bit Pippenger) MSMs
+window_launches = 0  # kernel 6 (per-lane 4-bit windows) MSMs
+lane_launches = 0  # kernel 7 (per-lane bit-serial) MSMs
+PIPPENGER_MAX_CHUNKS = 32768  # threads of the Pippenger kernel's first pass
+LANE_BLOCK = 128  # lanes per block of the per-lane kernel (csrc LANE_T)
 FIXED_WINDOWS = (5, 6)  # the windows the fixed-base kernels are built for
 _XYZZ_WORDS = 4 * NUM_WORDS
 REDUCE_GROUP = 32  # chunks per thread in the kernel's first bucket-reduce pass
@@ -57,35 +69,38 @@ def chunks_for(n: int) -> int:
     return max(1, min(1024, (n + 63) // 64))
 
 
-def msm(scalars: torch.Tensor, points, curve: CurveParams):
-    """sum_i s_i * P_i.  scalars: (N, 8) plain words (< the group order);
-    points: (X, Y, Z) (N, 8) Montgomery words, affine or identity
-    (Z in {0, 1}).  Returns a canonical Jacobian triple of (8,) tensors.
-
-    Precondition of the kernel: affine-or-identity bases and canonical
-    scalars; duplicate and opposite bases, zero scalars and identity lanes
-    are exact (complete XYZZ formulas, no offset point)."""
-    if scalars.device.type == "cpu":
-        return msm_plain(scalars, points, curve)
-    return msm_cuda(scalars, points, curve)
-
-
-def msm_cuda(scalars: torch.Tensor, points, curve: CurveParams):
-    global launches
-    field = _build.field_id(curve.base_modulus)
+def _check_msm_args(scalars, points, what: str):
+    """(n, device, contiguous (scalars, X, Y, Z)) of (N, 8) int32 tensors on
+    one CUDA device; anything else raises."""
     X, Y, Z = points
     n = scalars.shape[0]
     dev = scalars.device
     for t in (scalars, X, Y, Z):
-        if (t.device != dev or t.dtype != torch.int32
+        if (t.device != dev or t.device.type != "cuda" or t.dtype != torch.int32
                 or tuple(t.shape) != (n, NUM_WORDS)):
-            raise ValueError("msm_cuda: expects (N, 8) int32 tensors on one "
+            raise ValueError(f"{what}: expects (N, 8) int32 tensors on one "
                              "CUDA device")
-    if n == 0:
-        from ..curves.torch_curve import jacobian_ops
+    return n, dev, tuple(t.contiguous() for t in (scalars, X, Y, Z))
 
-        return jacobian_ops(curve.name).identity((), dev)
-    scalars, X, Y, Z = (t.contiguous() for t in (scalars, X, Y, Z))
+
+def _identity(curve: CurveParams, dev):
+    from ..curves.torch_curve import jacobian_ops
+
+    return jacobian_ops(curve.name).identity((), dev)
+
+
+def msm_cuda(scalars: torch.Tensor, points, curve: CurveParams):
+    """Kernel 1, the bucket MSM; ops/msm.py `msm_plain` is its plain version.
+    scalars: (N, 8) plain words (< the group order); points: (X, Y, Z)
+    (N, 8) Montgomery words, affine or identity (Z in {0, 1}).  Returns a
+    canonical Jacobian triple of (8,) tensors.  Duplicate and opposite
+    bases, zero scalars and identity lanes are exact (complete XYZZ
+    formulas, no offset point)."""
+    global launches
+    field = _build.field_id(curve.base_modulus)
+    n, dev, (scalars, X, Y, Z) = _check_msm_args(scalars, points, "msm_cuda")
+    if n == 0:
+        return _identity(curve, dev)
     nwin = num_windows(curve.scalar_modulus.bit_length())
     nchunks = chunks_for(n)
     thr = _thresholds_on(nwin, WINDOW, dev)
@@ -105,6 +120,69 @@ def msm_cuda(scalars: torch.Tensor, points, curve: CurveParams):
     )
     _build.check(err, "msm_bucket")
     launches += 1
+    return (out[0], out[1], out[2])
+
+
+def pippenger_chunks(n: int) -> int:
+    """Threads of the Pippenger kernel's first pass: ~4 points each, at most
+    PIPPENGER_MAX_CHUNKS (then more points per thread)."""
+    return max(1, min(PIPPENGER_MAX_CHUNKS, -(-n // 4)))
+
+
+def msm_pippenger_cuda(scalars: torch.Tensor, points, curve: CurveParams,
+                       signed: bool = True):
+    """Kernel 4 (signed 5-bit digits) or 5 (unsigned 4-bit); ops/msm.py
+    `msm_pippenger_plain` is its plain version.  Bases affine or identity;
+    duplicate and opposite bases are exact (complete XYZZ additions)."""
+    global pippenger_launches, pippenger_u4_launches
+    field = _build.field_id(curve.base_modulus)
+    n, dev, (sc, X, Y, Z) = _check_msm_args(scalars, points, "msm_pippenger_cuda")
+    if n == 0:
+        return _identity(curve, dev)
+    nwin = pippenger_windows(curve.scalar_modulus.bit_length(), signed)
+    nchunks = pippenger_chunks(n)
+    group = max(1, int(nchunks ** 0.5))  # two reduce passes of ~sqrt chains
+    thr = _thresholds_on(nwin, PIPPENGER_WINDOW, dev) if signed else sc
+    acc = torch.empty(nwin * nchunks, _XYZZ_WORDS, dtype=torch.int32, device=dev)
+    partial = torch.empty(nwin * -(-nchunks // group), _XYZZ_WORDS,
+                          dtype=torch.int32, device=dev)
+    ws = torch.empty(nwin, _XYZZ_WORDS, dtype=torch.int32, device=dev)
+    out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
+    err = _build.lib().mira_msm_pippenger(
+        field, int(signed), sc.data_ptr(), X.data_ptr(), Y.data_ptr(),
+        Z.data_ptr(), n, nwin, nchunks, group, thr.data_ptr(), acc.data_ptr(),
+        partial.data_ptr(), ws.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
+    _build.check(err, "msm_pippenger")
+    if signed:
+        pippenger_launches += 1
+    else:
+        pippenger_u4_launches += 1
+    return (out[0], out[1], out[2])
+
+
+def msm_lane_cuda(scalars: torch.Tensor, points, curve: CurveParams,
+                  window: int):
+    """Kernel 6 (window 4) or 7 (window 1, bit-serial), with the sum over
+    lanes on the card; ops/msm.py `msm_lane_plain` is its plain version."""
+    global window_launches, lane_launches
+    field = _build.field_id(curve.base_modulus)
+    if window not in (4, 1):
+        raise ValueError(f"msm_lane_cuda: window {window} not in (4, 1)")
+    n, dev, (sc, X, Y, Z) = _check_msm_args(scalars, points, "msm_lane_cuda")
+    if n == 0:
+        return _identity(curve, dev)
+    partial = torch.empty(-(-n // LANE_BLOCK), _XYZZ_WORDS, dtype=torch.int32,
+                          device=dev)
+    out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
+    err = _build.lib().mira_msm_lane(
+        field, window, sc.data_ptr(), X.data_ptr(), Y.data_ptr(), Z.data_ptr(),
+        n, curve.scalar_modulus.bit_length(), partial.data_ptr(), out.data_ptr(),
+        _build.stream_ptr(dev))
+    _build.check(err, "msm_lane")
+    if window == 4:
+        window_launches += 1
+    else:
+        lane_launches += 1
     return (out[0], out[1], out[2])
 
 
@@ -169,9 +247,7 @@ def msm_fixed_cuda(scalars: torch.Tensor, table: torch.Tensor,
         raise ValueError("msm_fixed_cuda: expects (N, 8) int32 scalars and an "
                          f"(N, {ntab}, 2, 8) int32 table on one CUDA device")
     if n == 0:
-        from ..curves.torch_curve import jacobian_ops
-
-        return jacobian_ops(curve.name).identity((), dev)
+        return _identity(curve, dev)
     scalars, table = scalars.contiguous(), table.contiguous()
     nwin = num_windows(curve.scalar_modulus.bit_length(), window)
     nchunks = chunks_for(n)

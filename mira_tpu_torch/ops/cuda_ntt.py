@@ -3,6 +3,9 @@ the port of mira_tpu/ops/ntt.py `_ntt_fourstep_jit`, and the per-stage
 butterfly (csrc/ntt_stage.cu), the port of `_ntt_pallas_jit`.  ops/ntt.py
 `ntt` dispatches here for CUDA tensors; the plain versions live there
 (`ntt_plain`, `stage_plain`).  Nothing here falls back to them.
+
+Every entry point takes one (n, 8) array or a batch (B, n, 8) of arrays of
+one size; a batch is one launch of each kernel (more blocks), not a loop.
 """
 
 from __future__ import annotations
@@ -21,11 +24,13 @@ FOURSTEP_MIN_LOG = 2  # n1 = 2^(log n // 2) must be at least 2
 FOURSTEP_MAX_LOG = 24  # a column of 2^12 elements fills the shared memory
 
 
-def _check(a: torch.Tensor, what: str):
-    if (a.device.type != "cuda" or a.dtype != torch.int32 or a.dim() != 2
-            or a.shape[1] != NUM_WORDS):
-        raise ValueError(f"{what}: expects an (n, 8) int32 tensor on a CUDA "
-                         "device")
+def _check(a: torch.Tensor, what: str) -> int:
+    """Validate an (n, 8) or (B, n, 8) word tensor; returns the batch B."""
+    if (a.device.type != "cuda" or a.dtype != torch.int32 or a.dim() not in (2, 3)
+            or a.shape[-1] != NUM_WORDS):
+        raise ValueError(f"{what}: expects an (n, 8) or (B, n, 8) int32 tensor "
+                         "on a CUDA device")
+    return a.shape[0] if a.dim() == 3 else 1
 
 
 @lru_cache(maxsize=None)
@@ -44,8 +49,8 @@ def stage_cuda(a: torch.Tensor, tw: torch.Tensor, half: int, modulus: int,
     `gather`."""
     global stage_launches
     field = _build.field_id(modulus)
-    _check(a, "stage_cuda")
-    n = a.shape[0]
+    batch = _check(a, "stage_cuda")
+    n = a.shape[-2]
     log_n = _log2(n)
     log_half = _log2(half)
     if log_n < 1 or log_half >= log_n:
@@ -60,7 +65,7 @@ def stage_cuda(a: torch.Tensor, tw: torch.Tensor, half: int, modulus: int,
         raise ValueError("stage_cuda: a gathering stage cannot run in place")
     err = _build.lib().mira_ntt_stage(
         field, a.data_ptr(), out.data_ptr(), tw.data_ptr(), log_n, log_half,
-        int(gather), None if scale is None else scale.data_ptr(),
+        int(gather), None if scale is None else scale.data_ptr(), batch,
         _build.stream_ptr(a.device))
     _build.check(err, "ntt_stage")
     stage_launches += 1
@@ -72,7 +77,7 @@ def ntt_stage_cuda(a: torch.Tensor, modulus: int, inverse: bool = False):
     the bit reversal into a new buffer, the rest run in place on it, the last
     carries the inverse's 1/n."""
     _check(a, "ntt_stage_cuda")
-    n = a.shape[0]
+    n = a.shape[-2]
     log_n = _log2(n)
     if log_n == 0:
         return a
@@ -107,8 +112,10 @@ def ntt_fourstep_cuda(a: torch.Tensor, modulus: int, inverse: bool = False):
     and (n1, n2) views of the array; the input is left as it was."""
     global fourstep_launches
     field = _build.field_id(modulus)
-    _check(a, "ntt_fourstep_cuda")
-    n = a.shape[0]
+    batch = _check(a, "ntt_fourstep_cuda")
+    if batch > 65535:
+        raise ValueError(f"ntt_fourstep_cuda: batch {batch} above 65535")
+    n = a.shape[-2]
     log_n = _log2(n)
     if not FOURSTEP_MIN_LOG <= log_n <= FOURSTEP_MAX_LOG:
         raise ValueError(
@@ -123,7 +130,7 @@ def ntt_fourstep_cuda(a: torch.Tensor, modulus: int, inverse: bool = False):
     err = _build.lib().mira_ntt_fourstep(
         field, a.data_ptr(), tmp.data_ptr(), out.data_ptr(), log_n,
         tw1.data_ptr(), tw2.data_ptr(), mid_a.data_ptr(), mid_b.data_ptr(),
-        None if scale is None else scale.data_ptr(),
+        None if scale is None else scale.data_ptr(), batch,
         _build.stream_ptr(a.device))
     _build.check(err, "ntt_fourstep")
     fourstep_launches += 1

@@ -23,7 +23,7 @@ from ..fields.limbs import limb_field
 
 class MockCommitmentKey:
     def __init__(self, curve: CurveParams, k: int, label: bytes = b"mock",
-                 device="cpu"):
+                 device="cuda"):
         self.curve = curve
         self.device = torch.device(device)
         self.size = 1 << k
@@ -46,10 +46,12 @@ class MockCommitmentKey:
         acc = sum(w * v for w, v in zip(self.weights, values))
         return self._gen.scalar_mul(acc % r)
 
-    def commit_device(self, witness_mont: torch.Tensor) -> AffinePoint:
+    def commit_device(self, witness_mont: torch.Tensor, mesh=None) -> AffinePoint:
         """<weights, witness> on the native 4x64 Montgomery inner product
         (mont_mul(w_plain, v_mont) = w*v, so no decode pass); the port's
-        (n, 8) int32 words are the byte image of its (n, 4) uint64 limbs."""
+        (n, 8) int32 words are the byte image of its (n, 4) uint64 limbs.
+        The mock key has no MSM to shard: with a mesh every rank computes
+        the same inner product."""
         from ..fields.native64 import available, inner_product_mont, ints_to_64
 
         n = witness_mont.shape[0]
@@ -64,7 +66,7 @@ class MockCommitmentKey:
         acc = inner_product_mont(r, self._w64, words.view("<u8").reshape(n, 4))
         return self._gen.scalar_mul(acc)
 
-    def commit_device_many(self, vectors, defer=False):
+    def commit_device_many(self, vectors, mesh=None, defer=False):
         pts = [self.commit_device(v) for v in vectors]
         return (lambda: pts) if defer else pts
 

@@ -16,6 +16,12 @@ of the fixed-base kernels (csrc/fixed_table.cu, csrc/msm_fixed.cu): a table
 of the affine multiples 1P..(2^(w-1))P of every base, and an MSM that looks
 each signed w-bit digit up in it, sums each window and joins the windows by
 Horner's rule.
+
+`msm_pippenger_plain` and `msm_lane_plain` are the plain versions of the
+other generic-base engines of mira_tpu's `msm_pallas` (csrc/msm_pippenger.cu,
+csrc/msm_lane.cu), and `msm(..., method=)` picks an engine by mira_tpu's
+method name, the plain version for a CPU tensor and the kernel for a CUDA
+one.
 """
 
 from __future__ import annotations
@@ -50,17 +56,23 @@ def encode_scalars(values, scalar_modulus: int, device="cpu") -> torch.Tensor:
     return torch.from_numpy(ints_to_words(ints)).to(device)
 
 
-def signed_digits(scalars: torch.Tensor, nwin: int,
-                  window: int = WINDOW) -> torch.Tensor:
-    """(N, 8) plain words -> (N, nwin) int64 signed digits in
-    [-2^(w-1), 2^(w-1) - 1] with sum_k d_k * 2^(w*k) == s."""
-    half = 1 << (window - 1)
+def unsigned_digits(scalars: torch.Tensor, nwin: int, window: int) -> torch.Tensor:
+    """(N, 8) plain words -> (N, nwin) int64 raw w-bit digits, window k
+    holding bits [w*k, w*k + w) of the scalar (zero past bit 255)."""
     w = scalars.to(torch.int64) & 0xFFFFFFFF
     # room past bit 255: windows may start up to bit w*nwin
     w = torch.cat((w, torch.zeros_like(w[:, :2])), dim=1)
     bits = (torch.arange(nwin, device=w.device) * window).clamp(max=8 * 32)
     wi, off = bits // 32, bits % 32
-    raw = ((w[:, wi] >> off) | (w[:, wi + 1] << (32 - off))) & (2 * half - 1)
+    return ((w[:, wi] >> off) | (w[:, wi + 1] << (32 - off))) & ((1 << window) - 1)
+
+
+def signed_digits(scalars: torch.Tensor, nwin: int,
+                  window: int = WINDOW) -> torch.Tensor:
+    """(N, 8) plain words -> (N, nwin) int64 signed digits in
+    [-2^(w-1), 2^(w-1) - 1] with sum_k d_k * 2^(w*k) == s."""
+    half = 1 << (window - 1)
+    raw = unsigned_digits(scalars, nwin, window)
     digits = torch.empty_like(raw)
     carry = torch.zeros_like(raw[:, 0])
     for k in range(nwin):
@@ -178,9 +190,10 @@ def precompute_fixed_table_plain(points, curve: CurveParams, window: int):
     return torch.stack(cols, 1)
 
 
-def _tree_sum(ops, pts):
+def tree_sum(ops, pts):
     """Sum lazy Jacobian points over the last batch axis by a halving tree
-    of complete additions: (G, M) -> (G,)."""
+    of complete additions (the lower half plus the upper half, an identity
+    appended to an odd level): (G, M) -> (G,)."""
     while pts[0].shape[1] > 1:
         m = pts[0].shape[1]
         if m % 2:
@@ -220,7 +233,7 @@ def msm_fixed_plain(scalars: torch.Tensor, table: torch.Tensor,
         ey = lf.lz(y)
         pts = (lf.lz(x), lf.where(d < 0, -ey, ey),
                lf.lz(lf.select(live, lf.one(live.shape, dev), lf.zero(live.shape, dev))))
-        sums.append(_tree_sum(ops, pts))
+        sums.append(tree_sum(ops, pts))
     S = tuple(Lz(lf, torch.cat([lf.settle(s[i]).t for s in sums]), 1)
               for i in range(3))
     acc = tuple(c[nwin - 1] for c in S)
@@ -229,3 +242,148 @@ def msm_fixed_plain(scalars: torch.Tensor, table: torch.Tensor,
             acc = ops.ldouble(acc)
         acc = ops.ladd(acc, tuple(c[k] for c in S))
     return ops.canon(acc)
+
+
+# -- generic-base engines: shared-Horner Pippenger and per-lane MSMs -----------
+# The plain versions of csrc/msm_pippenger.cu (kernels 4 and 5) and
+# csrc/msm_lane.cu (kernels 6 and 7), one step of the TPU kernel each,
+# vectorised over lanes.  Bases are affine or the identity (Z in {0, 1});
+# every point operation is the complete one, so duplicate and opposite bases
+# are exact too.
+
+PIPPENGER_WINDOW = 5  # kernel 4: signed 5-bit digits, table 1P..16P
+U4_WINDOW = 4  # kernel 5: unsigned 4-bit digits, table 1P..15P
+LANE_WINDOWS = {"window": 4, "lane": 1}  # kernel 6: 4-bit windows; 7: bit-serial
+METHODS = ("bucket", "pippenger", "pippenger-u4", "window", "lane")
+
+
+def pippenger_windows(num_bits: int, signed: bool) -> int:
+    """Windows of kernel 4 (signed: one more takes the last carry) or 5."""
+    if signed:
+        return num_windows(num_bits, PIPPENGER_WINDOW)
+    return -(-num_bits // U4_WINDOW)
+
+
+def _stack(lf, pts):
+    """A list of lazy (N,) points -> one lazy (len, N) point."""
+    return tuple(Lz(lf, torch.stack([lf.settle(p[i]).t for p in pts]), 1)
+                 for i in range(3))
+
+
+def _pippenger_table(ops, P, signed: bool):
+    """The per-lane multiples of kernels 4/5: 1P..16P with the odd ones
+    chained off 2P and the even ones doubled from their halves (signed), or
+    1P..15P by a chain of additions of P (unsigned)."""
+    tab = [P, ops.ldouble(P)]
+    if not signed:
+        for _ in range(2, 15):
+            tab.append(ops.ladd(tab[-1], P))
+        return tab
+    tab += [None] * 14
+    for v in range(3, 16, 2):
+        tab[v - 1] = ops.ladd(tab[v - 3], tab[1])
+    for v in range(4, 17, 2):
+        tab[v - 1] = ops.ldouble(tab[v // 2 - 1])
+    return tab
+
+
+@torch.inference_mode()
+def msm_pippenger_plain(scalars: torch.Tensor, points, curve: CurveParams,
+                        signed: bool = True):
+    """Kernel 4 (signed) or 5 (unsigned) in plain PyTorch: recoded digits,
+    the per-lane table of multiples, the sum over lanes of each window's
+    selected multiples (y negated for a negative digit), and Horner's rule
+    over the window sums.  Returns a canonical Jacobian triple."""
+    ops = jacobian_ops(curve.name)
+    lf = ops.lf
+    dev = scalars.device
+    n = scalars.shape[0]
+    if n == 0:
+        return ops.identity((), dev)
+    window = PIPPENGER_WINDOW if signed else U4_WINDOW
+    nwin = pippenger_windows(curve.scalar_modulus.bit_length(), signed)
+    digits = (signed_digits(scalars, nwin, window) if signed
+              else unsigned_digits(scalars, nwin, window)).T.contiguous()
+    T = _stack(lf, _pippenger_table(ops, ops.lz(points), signed))  # (ntab, N)
+    lane = torch.arange(n, device=dev)
+    group = max(1, (1 << 21) // n)  # windows per pass: bounds the temporaries
+    sums = []
+    for w0 in range(0, nwin, group):
+        d = digits[w0 : w0 + group]  # (g, N)
+        idx = (d.abs() - 1).clamp(min=0)
+        x, y, z = (c[idx, lane] for c in T)
+        sel = (x, lf.where(d < 0, -y, y),
+               lf.where(d != 0, z, lf.lz_raw(0, z.shape, dev)))
+        sums.append(tree_sum(ops, sel))
+    S = tuple(Lz(lf, torch.cat([lf.settle(s[i]).t for s in sums]), 1)
+              for i in range(3))
+    acc = tuple(c[nwin - 1] for c in S)
+    for k in range(nwin - 2, -1, -1):
+        for _ in range(window):
+            acc = ops.ldouble(acc)
+        acc = ops.ladd(acc, tuple(c[k] for c in S))
+    return ops.canon(acc)
+
+
+@torch.inference_mode()
+def msm_lane_plain(scalars: torch.Tensor, points, curve: CurveParams,
+                   window: int):
+    """Kernel 6 (window 4) or 7 (window 1, bit-serial) in plain PyTorch:
+    every lane runs double-and-add over its own scalar from the top window
+    down (`window` doublings, then the lane's multiple of its digit from a
+    table of 1P..(2^window - 1)P), and the lanes are summed by the halving
+    tree (`tree_sum`).  Returns a canonical Jacobian triple."""
+    ops = jacobian_ops(curve.name)
+    lf = ops.lf
+    dev = scalars.device
+    n = scalars.shape[0]
+    if n == 0:
+        return ops.identity((), dev)
+    nwin = -(-curve.scalar_modulus.bit_length() // window)
+    digits = unsigned_digits(scalars, nwin, window)
+    P = ops.lz(points)
+    tab = [P]  # tab[d] = (d + 1) P, as kernel 6 builds it
+    for d in range(1, (1 << window) - 1):
+        tab.append(ops.ldouble(tab[d // 2]) if d % 2 else ops.ladd(tab[d - 1], P))
+    T = _stack(lf, tab)
+    lane = torch.arange(n, device=dev)
+    acc = ops.lidentity((n,), dev)
+    for w in range(nwin - 1, -1, -1):
+        for _ in range(window):
+            acc = ops.ldouble(acc)
+        d = digits[:, w]
+        idx = (d - 1).clamp(min=0)
+        acc = ops.lselect(d > 0, ops.ladd(acc, tuple(c[idx, lane] for c in T)), acc)
+    return ops.canon(tuple(c[0] for c in tree_sum(ops, tuple(c[None] for c in acc))))
+
+
+def plain_engine(method: str):
+    """The plain version of the engine `method`, f(scalars, points, curve),
+    on tensors of any device: what `msm` runs for a CPU tensor, and what
+    the kernels are held to on the card."""
+    if method not in METHODS:
+        raise ValueError(f"msm: method {method!r} not in {METHODS}")
+    if method == "bucket":
+        return msm_plain
+    if method in LANE_WINDOWS:
+        return lambda s, P, c: msm_lane_plain(s, P, c, LANE_WINDOWS[method])
+    return lambda s, P, c: msm_pippenger_plain(s, P, c, method == "pippenger")
+
+
+def msm(scalars: torch.Tensor, points, curve: CurveParams, method: str = "bucket"):
+    """sum_i s_i * P_i by the engine `method` (mira_tpu's `msm_pallas`
+    names): "bucket" (kernel 1), "pippenger" (4), "pippenger-u4" (5),
+    "window" (6) or "lane" (7).  scalars: (N, 8) plain words below the group
+    order; points: (X, Y, Z) (N, 8) Montgomery words, affine or identity.
+    A CPU tensor takes the engine's plain version, a CUDA tensor its kernel.
+    Returns a canonical Jacobian triple of (8,) tensors."""
+    plain = plain_engine(method)
+    if scalars.device.type == "cpu":
+        return plain(scalars, points, curve)
+    from . import cuda_msm
+
+    if method == "bucket":
+        return cuda_msm.msm_cuda(scalars, points, curve)
+    if method in LANE_WINDOWS:
+        return cuda_msm.msm_lane_cuda(scalars, points, curve, LANE_WINDOWS[method])
+    return cuda_msm.msm_pippenger_cuda(scalars, points, curve, method == "pippenger")

@@ -7,6 +7,10 @@ Semantics are the reference FFT's (src/fft.rs:51-226): natural order in and
 out, the inverse carries the 1/n divisor, coset powers [1, zeta, zeta^2, 1,
 ...].
 
+`ntt` takes one (n, 8) array or a batch (B, n, 8) of arrays of one size (the
+row transforms of parallel/ntt.py's distributed NTT): on the card a batch is
+one launch of each kernel.
+
 Dispatch of `ntt`: a CPU tensor takes the plain stage-by-stage version
 (`ntt_plain`); a CUDA tensor takes a kernel of ops/cuda_ntt.py, chosen by
 `engine`: "auto" is the four-step kernel (csrc/ntt_fourstep.cu) for
@@ -123,25 +127,25 @@ def _bitrev_index(log_n: int, device: str) -> torch.Tensor:
 
 # -- plain versions -------------------------------------------------------------
 def stage_plain(a: torch.Tensor, tw: torch.Tensor, half: int, modulus: int):
-    """One butterfly stage on an (n, 8) array whose pairs are (i, i + half)
-    inside blocks of 2 * half: (u, v) -> (u + t v, u - t v) with
-    t = tw[k * n / (2 half)] for the pair's offset k.  The plain version of
-    csrc/ntt_stage.cu."""
+    """One butterfly stage on an (n, 8) array (or a (B, n, 8) batch) whose
+    pairs are (i, i + half) inside blocks of 2 * half: (u, v) ->
+    (u + t v, u - t v) with t = tw[k * n / (2 half)] for the pair's offset k.
+    The plain version of csrc/ntt_stage.cu."""
     lf = limb_field(modulus)
-    n = a.shape[0]
-    x = a.reshape(n // (2 * half), 2, half, NUM_WORDS)
-    u = lf.lz(x[:, 0])
-    prod = lf.lz(x[:, 1]) * lf.lz(tw[:: n // (2 * half)])[None]
+    n = a.shape[-2]
+    x = a.reshape(*a.shape[:-2], n // (2 * half), 2, half, NUM_WORDS)
+    u = lf.lz(x[..., 0, :, :])
+    prod = lf.lz(x[..., 1, :, :]) * lf.lz(tw[:: n // (2 * half)])
     return torch.stack((lf.canon(u + prod), lf.canon(u - prod)),
-                       dim=1).reshape(n, NUM_WORDS)
+                       dim=-3).reshape(a.shape)
 
 
 def transform_plain(a: torch.Tensor, tw: torch.Tensor, modulus: int):
     """Bit-reversal gather and all log n butterfly stages over the twiddle
     table `tw` (n/2 powers of the domain's root), without any divisor."""
-    n = a.shape[0]
+    n = a.shape[-2]
     log_n = _log2(n)
-    a = a[_bitrev_index(log_n, str(a.device))]
+    a = a[..., _bitrev_index(log_n, str(a.device)), :]
     for s in range(log_n):
         a = stage_plain(a, tw, 1 << s, modulus)
     return a
@@ -152,7 +156,7 @@ def ntt_plain(a: torch.Tensor, modulus: int, inverse: bool = False):
     `_ntt_jit`): bit-reversal gather, log n butterfly stages, and the 1/n
     divisor of the inverse."""
     lf = limb_field(modulus)
-    n = a.shape[0]
+    n = a.shape[-2]
     log_n = _log2(n)
     if log_n == 0:
         return a
@@ -166,16 +170,16 @@ def ntt_plain(a: torch.Tensor, modulus: int, inverse: bool = False):
 # -- entry points ---------------------------------------------------------------
 def ntt(a: torch.Tensor, modulus: int, inverse: bool = False,
         engine: str = "auto"):
-    """Forward/inverse NTT of an (n, 8) Montgomery word tensor, on the
-    device of `a`.  Output is in standard order; the inverse includes the
+    """Forward/inverse NTT of an (n, 8) Montgomery word tensor, or of each
+    array of a (B, n, 8) batch, on the device of `a`.  Output is in standard order; the inverse includes the
     1/n divisor (reference fft.rs:160-174).  `engine` picks the kernel on a
     CUDA tensor (see the module docstring); a CPU tensor always takes the
     plain version."""
     if engine not in ENGINES:
         raise ValueError(f"ntt: engine {engine!r} not in {ENGINES}")
-    if a.dim() != 2 or a.shape[1] != NUM_WORDS or a.dtype != torch.int32:
-        raise ValueError("ntt: expects an (n, 8) int32 word tensor")
-    n = a.shape[0]
+    if a.dim() not in (2, 3) or a.shape[-1] != NUM_WORDS or a.dtype != torch.int32:
+        raise ValueError("ntt: expects an (n, 8) or (B, n, 8) int32 word tensor")
+    n = a.shape[-2]
     log_n = _log2(n)
     get_omega(modulus, log_n)  # raises past the field's 2-adicity
     if log_n == 0:

@@ -7,6 +7,11 @@ evaluator, and witness folding as elementwise field ops on that device.
 Instance-side math (points, challenges, Gt elements) stays on the host, as
 in mira_tpu.  Protocol semantics and the order of every transcript absorb
 and every seeded random draw are mira_tpu's.
+
+With a mesh (parallel/mesh.py), the SPS witness commitments are sharded
+MSMs and never the incremental delta commit, and the witness fold runs
+each rank's block of rows, gathered whole on every rank (mira_tpu's GSPMD
+row sharding).
 """
 
 from __future__ import annotations
@@ -278,9 +283,9 @@ class PlonkStructure:
 
     # -- SPS protocol --------------------------------------------------------
     def run_sps_protocol(self, ck, instance: List[int], advice, ro_nark,
-                         rng=None) -> "PlonkTrace":
+                         rng=None, mesh=None) -> "PlonkTrace":
         """advice: raw advice columns (each 2^k ints) or a DeviceWitness
-        (table/packed.py)."""
+        (table/packed.py).  With a mesh, the commitments are sharded."""
         from ..table.packed import DeviceWitness
 
         rng = rng or random.Random(0x5050)
@@ -289,13 +294,13 @@ class PlonkStructure:
             # only the lookup coefficient rounds read int columns
             advice = advice.to_int_cols()
         if n == 0:
-            return self._sps_0(ck, instance, advice, rng)
+            return self._sps_0(ck, instance, advice, rng, mesh)
         if n == 1:
-            return self._sps_1(ck, instance, advice, ro_nark, rng)
+            return self._sps_1(ck, instance, advice, ro_nark, rng, mesh)
         if n == 2:
-            return self._sps_2(ck, instance, advice, ro_nark, rng)
+            return self._sps_2(ck, instance, advice, ro_nark, rng, mesh)
         if n == 3:
-            return self._sps_3(ck, instance, advice, ro_nark, rng)
+            return self._sps_3(ck, instance, advice, ro_nark, rng, mesh)
         raise ValueError(f"unsupported challenge count {n}")
 
     def _concat_pad(self, cols: List[List[int]]) -> List[int]:
@@ -317,7 +322,7 @@ class PlonkStructure:
         g2 = [G2Point.random(rng, Fb) for _ in range(self.num_g2_elems)]
         return g1, g2
 
-    def _sps_0(self, ck, instance, advice, rng) -> "PlonkTrace":
+    def _sps_0(self, ck, instance, advice, rng, mesh=None) -> "PlonkTrace":
         from ..table.packed import DeviceWitness
 
         lf = self.lf
@@ -328,10 +333,10 @@ class PlonkStructure:
             else:
                 W1 = encode_padded(lf, advice, 1 << self.k, ck.device)
         with span("witness_commit"):
-            if isinstance(advice, DeviceWitness):
+            if isinstance(advice, DeviceWitness) and mesh is None:
                 C1 = ck.commit_delta(advice)
             else:
-                C1 = ck.commit_device(W1)
+                C1 = ck.commit_device(W1, mesh=mesh)
         with span("sps_group_elements"):
             g1, g2 = self._random_group_elements(rng)
         return PlonkTrace(
@@ -339,8 +344,8 @@ class PlonkStructure:
             w=PlonkWitness(lf, [W1]),
         )
 
-    def _sps_1(self, ck, instance, advice, ro_nark, rng) -> "PlonkTrace":
-        trace = self._sps_0(ck, instance, advice, rng)
+    def _sps_1(self, ck, instance, advice, ro_nark, rng, mesh=None) -> "PlonkTrace":
+        trace = self._sps_0(ck, instance, advice, rng, mesh)
         base = field(self.curve.base_modulus)
         scalar = field(self.modulus)
         for inst in instance:
@@ -351,7 +356,7 @@ class PlonkStructure:
         trace.u.challenges.append(r1)
         return trace
 
-    def _sps_2(self, ck, instance, advice, ro_nark, rng) -> "PlonkTrace":
+    def _sps_2(self, ck, instance, advice, ro_nark, rng, mesh=None) -> "PlonkTrace":
         lf = self.lf
         base = field(self.curve.base_modulus)
         scalar = field(self.modulus)
@@ -361,14 +366,14 @@ class PlonkStructure:
         ls, ts, ms = self._lookup_coeff_1(advice, 0)
         W1 = encode_padded(lf, list(advice) + list(_interleave3(ls, ts, ms)),
                            nrow, ck.device)
-        cm1 = ck.commit_device(W1)
+        cm1 = ck.commit_device(W1, mesh=mesh)
         for inst in instance:
             ro_nark.absorb_field(base(inst % self.curve.base_modulus))
         ro_nark.absorb_point(cm1)
         r1 = ro_nark.squeeze(scalar, NUM_CHALLENGE_BITS).v
         hs, gs = self._lookup_coeff_2(ls, ts, ms, r1)
         W2 = encode_padded(lf, _interleave(hs, gs), nrow, ck.device)
-        cm2 = ck.commit_device(W2)
+        cm2 = ck.commit_device(W2, mesh=mesh)
         ro_nark.absorb_point(cm2)
         r2 = ro_nark.squeeze(scalar, NUM_CHALLENGE_BITS).v
         g1, g2 = self._random_group_elements(rng)
@@ -377,7 +382,7 @@ class PlonkStructure:
             w=PlonkWitness(lf, [W1, W2]),
         )
 
-    def _sps_3(self, ck, instance, advice, ro_nark, rng) -> "PlonkTrace":
+    def _sps_3(self, ck, instance, advice, ro_nark, rng, mesh=None) -> "PlonkTrace":
         lf = self.lf
         base = field(self.curve.base_modulus)
         scalar = field(self.modulus)
@@ -385,17 +390,17 @@ class PlonkStructure:
         for inst in instance:
             ro_nark.absorb_field(base(inst % self.curve.base_modulus))
         W1 = encode_padded(lf, advice, nrow, ck.device)
-        cm1 = ck.commit_device(W1)
+        cm1 = ck.commit_device(W1, mesh=mesh)
         ro_nark.absorb_point(cm1)
         r1 = ro_nark.squeeze(scalar, NUM_CHALLENGE_BITS).v
         ls, ts, ms = self._lookup_coeff_1(advice, r1)
         W2 = encode_padded(lf, _interleave3(ls, ts, ms), nrow, ck.device)
-        cm2 = ck.commit_device(W2)
+        cm2 = ck.commit_device(W2, mesh=mesh)
         ro_nark.absorb_point(cm2)
         r2 = ro_nark.squeeze(scalar, NUM_CHALLENGE_BITS).v
         hs, gs = self._lookup_coeff_2(ls, ts, ms, r2)
         W3 = encode_padded(lf, _interleave(hs, gs), nrow, ck.device)
-        cm3 = ck.commit_device(W3)
+        cm3 = ck.commit_device(W3, mesh=mesh)
         ro_nark.absorb_point(cm3)
         r3 = ro_nark.squeeze(scalar, NUM_CHALLENGE_BITS).v
         g1, g2 = self._random_group_elements(rng)
@@ -638,19 +643,35 @@ class RelaxedPlonkWitness:
         return cls(lf, [lf.zero((sz,), device) for sz in round_sizes],
                    lf.zero((1 << k,), device))
 
-    def fold(self, W2: PlonkWitness, cross_terms: List,
-             r: int) -> "RelaxedPlonkWitness":
+    def fold(self, W2: PlonkWitness, cross_terms: List, r: int,
+             mesh=None) -> "RelaxedPlonkWitness":
         """W' = W1 + r*W2; E' = E + sum_k r^k T_k, as elementwise field ops
-        on the witness device."""
+        on the witness device.  With a mesh, each rank folds its block of
+        the rows of every array, and the blocks are gathered."""
         lf = self.lf
         p = lf.modulus
-        W_out = [_rlc(lf, a, b, r % p) for a, b in zip(self.W, W2.W)]
-        E = lf.lz(self.E)
+        rpows = []
         rpow = r % p
-        for t in cross_terms:
-            E = E + lf.lz(t) * lf.lz_const(rpow, t.shape[:-1], t.device)
+        for _ in cross_terms:
+            rpows.append(rpow)
             rpow = rpow * r % p
-        return RelaxedPlonkWitness(lf, W_out, lf.canon(E))
+
+        def fold_E(E1, *ts):
+            E = lf.lz(E1)
+            for t, rp in zip(ts, rpows):
+                E = E + lf.lz(t) * lf.lz_const(rp, t.shape[:-1], t.device)
+            return lf.canon(E)
+
+        def rlc(a, b):
+            return _rlc(lf, a, b, r % p)
+
+        if mesh is None:
+            return RelaxedPlonkWitness(
+                lf, [rlc(a, b) for a, b in zip(self.W, W2.W)],
+                fold_E(self.E, *cross_terms))
+        return RelaxedPlonkWitness(
+            lf, [mesh.rowwise(rlc, a, b) for a, b in zip(self.W, W2.W)],
+            mesh.rowwise(fold_E, self.E, *cross_terms))
 
 
 def _rlc(lf, a: torch.Tensor, b: torch.Tensor, r: int) -> torch.Tensor:

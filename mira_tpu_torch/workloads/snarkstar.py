@@ -48,7 +48,7 @@ def _sync(device):
 def run(steps: int = 1, batch_size: int = 1, use_mock_ck: bool = True,
         k_override: int | None = None, debug_mode: bool = False,
         real_proofs: bool = False, num_constraints: int = 1000,
-        proof_file: str | None = None, device="cpu") -> dict:
+        proof_file: str | None = None, device="cuda") -> dict:
     """Fold `steps` SnarkStar steps on `device` and verify the accumulators
     (strict).  Returns the seconds of each phase: "proofs", "keys",
     "public_params", "zero_step", "fold_steps" (a list, each step timed to
@@ -200,7 +200,7 @@ if __name__ == "__main__":
     ap.add_argument("--num-constraints", type=int, default=1000)
     ap.add_argument("--proof-file", type=str, default=None,
                     help="snarkjs-format JSON bundle of external proofs to fold")
-    ap.add_argument("--device", default="cpu", help="cpu or cuda")
+    ap.add_argument("--device", default="cuda", help="cuda or cpu")
     args = ap.parse_args()
     run(args.steps, args.batch_size, not args.real_ck, args.k, args.debug_mode,
         args.real_proofs, args.num_constraints, args.proof_file, args.device)

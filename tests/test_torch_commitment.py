@@ -32,7 +32,8 @@ def keys(curve, cache_dir):
     label = f"torch-test-{curve.name}"
     theirs = MiraKey.load_or_setup_cache(to_mira(curve), K, label,
                                          cache_dir=cache_dir)
-    mine = CommitmentKey.load_or_setup_cache(curve, K, label, cache_dir=cache_dir)
+    mine = CommitmentKey.load_or_setup_cache(curve, K, label, cache_dir=cache_dir,
+                                             device="cpu")
     return theirs, mine
 
 
@@ -57,7 +58,7 @@ def test_prefix_of_a_larger_key(cache_dir):
     big = MiraKey.load_or_setup_cache(to_mira(BN254_G1), K + 1, "torch-prefix",
                                       cache_dir=cache_dir)
     small = CommitmentKey.load_or_setup_cache(BN254_G1, K, "torch-prefix",
-                                              cache_dir=cache_dir)
+                                              cache_dir=cache_dir, device="cpu")
     assert np.array_equal(small._limbs, big._limbs[: 1 << K])
 
 
@@ -70,7 +71,7 @@ def test_corrupted_key_file_raises(tmp_path):
     np.save(path, arr)
     with pytest.raises(ValueError):
         CommitmentKey.load_or_setup_cache(BN254_G1, 3, "torch-bad",
-                                          cache_dir=str(tmp_path))
+                                          cache_dir=str(tmp_path), device="cpu")
     assert len(key) == 8
 
 
@@ -136,13 +137,14 @@ def test_derived_files_keyed_by_the_key(tmp_path):
     key of the same curve and label (a regenerated key file), and mira_tpu's
     .cache/fbtab files are never read."""
     cache = str(tmp_path / "ck")
-    a = CommitmentKey.load_or_setup_cache(BN254_G1, K, "keyed", cache_dir=cache)
+    a = CommitmentKey.load_or_setup_cache(BN254_G1, K, "keyed", cache_dir=cache,
+                                          device="cpu")
     got, want, dw = _delta_commit(a)
     assert got == want
     written = list((tmp_path / "torch_derived").rglob("ctmpl-*.npy"))
     assert len(written) == 1
     # the key file is replaced by another key's points (same curve, label)
-    other = CommitmentKey.setup(BN254_G1, K, b"another label")
+    other = CommitmentKey.setup(BN254_G1, K, b"another label", device="cpu")
     np.save(tmp_path / "ck" / "bn254" / "keyed" / f"{K}-svdw.npy", other._limbs)
     # and mira_tpu's derived-artifact directory holds a wrong template point
     fb = tmp_path / "fbtab" / "bn254" / "keyed"
@@ -151,7 +153,8 @@ def test_derived_files_keyed_by_the_key(tmp_path):
     np.save(fb / written[0].name, np.stack([
         np.frombuffer(v.to_bytes(32, "little"), "<u2").astype(np.uint32)
         for v in (g.x.v, g.y.v, 0)]))
-    b = CommitmentKey.load_or_setup_cache(BN254_G1, K, "keyed", cache_dir=cache)
+    b = CommitmentKey.load_or_setup_cache(BN254_G1, K, "keyed", cache_dir=cache,
+                                          device="cpu")
     assert b._aux_dir != a._aux_dir
     got_b, want_b, _ = _delta_commit(b)
     assert got_b == want_b != want
@@ -162,7 +165,8 @@ def test_corrupted_template_commit_raises(tmp_path):
     """A persisted template commitment that was altered raises on load
     instead of being used; multiples tables are never written to disk."""
     cache = str(tmp_path / "ck")
-    key = CommitmentKey.load_or_setup_cache(GRUMPKIN, 8, "lane", cache_dir=cache)
+    key = CommitmentKey.load_or_setup_cache(GRUMPKIN, 8, "lane", cache_dir=cache,
+                                            device="cpu")
     got, want, _ = _delta_commit(key)
     assert got == want
     lf = limb_field(GRUMPKIN.scalar_modulus)
@@ -174,7 +178,8 @@ def test_corrupted_template_commit_raises(tmp_path):
     point = np.load(path)
     point[0, 0] ^= 1
     np.save(path, point)
-    again = CommitmentKey.load_or_setup_cache(GRUMPKIN, 8, "lane", cache_dir=cache)
+    again = CommitmentKey.load_or_setup_cache(GRUMPKIN, 8, "lane", cache_dir=cache,
+                                              device="cpu")
     with pytest.raises(ValueError, match="corrupted template commitment"):
         _delta_commit(again)
 
@@ -185,8 +190,26 @@ def test_key_grows_from_a_cached_smaller_key(curve, tmp_path):
     2^k: loading 2^k generates only the rows past it, and the result equals
     mira_tpu's key made in one go."""
     cache = str(tmp_path / "ck")
-    small = CommitmentKey.load_or_setup_cache(curve, 5, "grow", cache_dir=cache)
-    big = CommitmentKey.load_or_setup_cache(curve, 8, "grow", cache_dir=cache)
+    small = CommitmentKey.load_or_setup_cache(curve, 5, "grow", cache_dir=cache,
+                                              device="cpu")
+    big = CommitmentKey.load_or_setup_cache(curve, 8, "grow", cache_dir=cache,
+                                            device="cpu")
     assert np.array_equal(big._limbs[:32], small._limbs)
     assert np.array_equal(big._limbs, MiraKey.setup(to_mira(curve), 8, b"grow")._limbs)
     assert (tmp_path / "ck" / curve.name / "grow" / "8-svdw.npy").exists()
+
+
+def test_entry_points_default_to_the_card():
+    """A caller who names no device gets the card: the keys, the mock key
+    and SnarkStar's run() default to "cuda" (the tests pass "cpu"), and
+    the generic-base engine defaults to the bucket MSM."""
+    import inspect
+
+    from mira_tpu_torch.ops.mock_commitment import MockCommitmentKey
+    from mira_tpu_torch.workloads import snarkstar
+
+    for fn in (CommitmentKey, CommitmentKey.setup, CommitmentKey.load_or_setup_cache,
+               MockCommitmentKey, snarkstar.run):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert inspect.signature(CommitmentKey).parameters["generic_method"].default == "bucket"
+    assert 'default="cuda"' in inspect.getsource(snarkstar)

@@ -19,8 +19,10 @@ from mira_tpu_torch.fields.limbs import limb_field
 from mira_tpu_torch.ops import cuda_msm
 from mira_tpu_torch.ops.msm import (
     encode_scalars,
+    msm,
     msm_fixed_plain,
     msm_plain,
+    plain_engine,
     precompute_fixed_table_plain,
 )
 from mira_tpu_torch.table.runner import CircuitRunner
@@ -79,7 +81,7 @@ def _run(fn, curve, sc, pts, dev):
 def test_bucket_kernel_matches_plain_and_host(curve, n, cuda_device):  # noqa: F811
     sc, pts = _adversarial(curve, max(n, 11), seed=n)
     sc, pts = sc[:n], pts[-n:]
-    got, s, P = _run(cuda_msm.msm, curve, sc, pts, cuda_device)
+    got, s, P = _run(msm, curve, sc, pts, cuda_device)
     assert got == _run(msm_plain, curve, sc, pts, cuda_device)[0]
     assert got == msm_reference(s, P, curve)
 
@@ -90,7 +92,7 @@ def test_bucket_kernel_identity_cases(cuda_device):  # noqa: F811
     for sc, pts, want in (([0, 0], [P, P], ident), ([3], [ident], ident),
                           ([1, 1], [P, P], P.double()),
                           ([1, 1], [P, P.neg()], ident)):
-        assert _run(cuda_msm.msm, BN254_G1, sc, pts, cuda_device)[0] == want
+        assert _run(msm, BN254_G1, sc, pts, cuda_device)[0] == want
 
 
 class _Fibo:
@@ -277,3 +279,78 @@ def test_poseidon_kernel_rejects_wide_states(cuda_device):  # noqa: F811
     flat = torch.zeros(4, 5, 8, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         poseidon_hash_batch_cuda(flat, BN254_FR, t=6, rate=5)
+
+
+# -- the generic-base engines: Pippenger (kernels 4, 5), per lane (6, 7) ------
+ENGINES = ["pippenger", "pippenger-u4", "window", "lane"]
+
+
+def _edge_scalars(curve, sc):
+    """0, 1, r - 1, 16 (the signed recoding's digit -16 with a carry), 16 in
+    every window, and 2^250 - 1 (every raw digit maximal)."""
+    r = curve.scalar_modulus
+    every = sum(16 << (5 * k) for k in range(50))
+    sc[:6] = [0, 1, r - 1, 16, every % r, (1 << 250) - 1]
+    return sc
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+@pytest.mark.parametrize("method", ENGINES)
+@pytest.mark.parametrize("n", [1, 255, 300, 4096])
+def test_msm_engine_kernels_match_plain_and_host(curve, method, n, cuda_device):  # noqa: F811
+    """Kernels 4-7 against their plain versions on the card and the host
+    MSM: duplicate bases (outside the TPU kernels' precondition, exact
+    here), an identity lane, zero and edge scalars."""
+    sc, pts = _adversarial(curve, max(n, 11), seed=n + len(method))
+    sc = _edge_scalars(curve, sc)
+    sc, pts = sc[:n], pts[-n:]
+    got, s, P = _run(lambda s, P, c: msm(s, P, c, method), curve, sc, pts,
+                     cuda_device)
+    plain = _run(plain_engine(method), curve, sc, pts, cuda_device)[0]
+    assert got == plain == msm_reference(s, P, curve)
+
+
+@pytest.mark.parametrize("method", ENGINES)
+def test_msm_engine_kernels_identity_cases(method, cuda_device):  # noqa: F811
+    P = AffinePoint.random(BN254_G1, random.Random(3))
+    ident = AffinePoint.identity(BN254_G1)
+    for sc, pts, want in (([0, 0], [P, P], ident), ([3], [ident], ident),
+                          ([1, 1], [P, P], P.double()),
+                          ([1, 1], [P, P.neg()], ident),
+                          ([16, 16], [P, P], P.scalar_mul(32))):
+        got = _run(lambda s, Q, c: msm(s, Q, c, method), BN254_G1, sc, pts,
+                   cuda_device)[0]
+        assert got == want
+
+
+def test_msm_engine_launch_counters(cuda_device):  # noqa: F811
+    sc, pts = _adversarial(BN254_G1, 64, seed=5)
+    names = {"pippenger": "pippenger_launches",
+             "pippenger-u4": "pippenger_u4_launches",
+             "window": "window_launches", "lane": "lane_launches"}
+    for method, counter in names.items():
+        before = getattr(cuda_msm, counter)
+        _run(lambda s, P, c: msm(s, P, c, method), BN254_G1, sc, pts, cuda_device)
+        assert getattr(cuda_msm, counter) == before + 1
+
+
+@pytest.mark.parametrize("engine", ["stage", "fourstep"])
+@pytest.mark.parametrize("log_n", [2, 5, 12])
+def test_ntt_kernels_batched(engine, log_n, cuda_device):  # noqa: F811
+    """A (B, n, 8) batch is one launch of each kernel and equals B separate
+    transforms and the plain batched version, forward and inverse."""
+    from mira_tpu_torch.ops import cuda_ntt, ntt
+
+    p = BN254_FR
+    rows = torch.stack([_ntt_inputs(1 << log_n, 40 + b, cuda_device)[1]
+                        for b in range(5)])
+    for inverse in (False, True):
+        before = (cuda_ntt.fourstep_launches, cuda_ntt.stage_launches)
+        got = ntt.ntt(rows, p, inverse, engine=engine)
+        after = (cuda_ntt.fourstep_launches, cuda_ntt.stage_launches)
+        assert after[0] - before[0] == (engine == "fourstep")
+        assert after[1] - before[1] == (log_n if engine == "stage" else 0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ntt.ntt_plain(rows, p, inverse))
+        for b in range(rows.shape[0]):
+            assert torch.equal(got[b], ntt.ntt(rows[b], p, inverse, engine=engine))

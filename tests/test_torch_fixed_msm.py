@@ -157,7 +157,7 @@ def key_dir(tmp_path_factory):
 
 def fresh_key(curve, key_dir):
     return CommitmentKey.load_or_setup_cache(curve, K, f"fixed-{curve.name}",
-                                             cache_dir=key_dir)
+                                             cache_dir=key_dir, device="cpu")
 
 
 def _vec(lf, n, seed):

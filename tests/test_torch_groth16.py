@@ -140,7 +140,7 @@ def test_proof_bundle_round_trips_with_mira(proofs, tmp_path):
 
 @pytest.mark.parametrize("curve", [BN254_G1, GRUMPKIN], ids=["bn254", "grumpkin"])
 def test_mock_key_matches_mira(curve):
-    mine = MockCommitmentKey(curve, 6, b"t")
+    mine = MockCommitmentKey(curve, 6, b"t", device="cpu")
     theirs = MiraMockKey(to_mira(curve), 6, b"t")
     rng = random.Random(1)
     vals = [rng.randrange(curve.scalar_modulus) for _ in range(50)]
@@ -176,7 +176,7 @@ def test_real_proofs_fold_matches_mira(proofs):
     advice = [_runner(MiraRunner, MulCircuit(s), ctxs["mira"]).collect_witness()
               for s in (1, 2)]
     ck_m = MiraKey.setup(MIRA_BN254_G1, K + 2, b"test")
-    ck_t = CommitmentKey(BN254_G1, ck_m._limbs)
+    ck_t = CommitmentKey(BN254_G1, ck_m._limbs, device="cpu")
     pp_m, _ = MiraFS.setup_params(MiraPoint.generator(MIRA_BN254_G1), S_m)
     pp_t, vp = VanillaFS.setup_params(AffinePoint.generator(BN254_G1), S_t)
 
@@ -226,7 +226,7 @@ def test_snarkstar_real_proofs_two_steps():
     from mira_tpu_torch.workloads import snarkstar
 
     secs = snarkstar.run(steps=2, batch_size=1, real_proofs=True,
-                         num_constraints=20)
+                         num_constraints=20, device="cpu")
     assert len(secs["fold_steps"]) == 2
 
 

@@ -35,13 +35,13 @@ class IdentityKey:
         self.curve = curve
         self.device = torch.device("cpu")
 
-    def commit_device(self, _witness):
+    def commit_device(self, _witness, mesh=None):
         return AffinePoint.identity(self.curve)
 
     def commit_delta(self, _device_witness):
         return AffinePoint.identity(self.curve)
 
-    def commit_device_many(self, vectors, defer=False):
+    def commit_device_many(self, vectors, mesh=None, defer=False):
         out = [AffinePoint.identity(self.curve) for _ in vectors]
         return (lambda: out) if defer else out
 

@@ -17,7 +17,7 @@ from mira_tpu_torch.convert import limbs16_to_words
 from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint
 from mira_tpu_torch.curves.torch_curve import jacobian_ops
 from mira_tpu_torch.ops import cuda_msm
-from mira_tpu_torch.ops.msm import encode_scalars, msm_plain, signed_digits
+from mira_tpu_torch.ops.msm import encode_scalars, msm, msm_plain, signed_digits
 
 from torch_port_helpers import same, to_mira  # also sizes torch's thread pool
 
@@ -93,12 +93,12 @@ def test_msm_edge_widths(curve):
     rng = random.Random(5)
     P = AffinePoint.random(curve, rng)
     ident = AffinePoint.identity(curve)
-    assert run_msm(cuda_msm.msm, curve, [0, 0], [P, P]) == ident
-    assert run_msm(cuda_msm.msm, curve, [5, 7], [ident, ident]) == ident
+    assert run_msm(msm, curve, [0, 0], [P, P]) == ident
+    assert run_msm(msm, curve, [5, 7], [ident, ident]) == ident
     s = rng.randrange(curve.scalar_modulus)
-    assert run_msm(cuda_msm.msm, curve, [s], [P]) == P.scalar_mul(s)
-    assert run_msm(cuda_msm.msm, curve, [1, 1], [P, P]) == P.double()
-    assert run_msm(cuda_msm.msm, curve, [1, 1], [P, P.neg()]) == ident
+    assert run_msm(msm, curve, [s], [P]) == P.scalar_mul(s)
+    assert run_msm(msm, curve, [1, 1], [P, P]) == P.double()
+    assert run_msm(msm, curve, [1, 1], [P, P.neg()]) == ident
 
 
 def test_kernel_field_ids_reject_other_moduli():

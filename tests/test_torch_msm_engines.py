@@ -1,0 +1,175 @@
+"""The plain versions of the generic-base MSM engines of the port
+(ops/msm.py: kernels 4 and 5, the shared-Horner Pippenger; kernels 6 and 7,
+the per-lane double-and-add) against mira_tpu's native and host MSMs, the
+routes mira_tpu pins equal to its Pallas kernels (their interpret mode takes
+minutes); the `msm(method=)` dispatcher; and CommitmentKey(generic_method=)
+on a k=8 key, with the same commitment for every method and as mira_tpu's.
+Exact equality throughout."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from mira_tpu.curves.host import msm_host
+from mira_tpu.ops.commitment import CommitmentKey as MiraKey
+from mira_tpu.ops.native_msm import msm_native
+from mira_tpu_torch.convert import to_plain
+from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint
+from mira_tpu_torch.curves.torch_curve import jacobian_ops
+from mira_tpu_torch.fields.limbs import limb_field
+from mira_tpu_torch.ops import commitment as commitment_mod
+from mira_tpu_torch.ops import msm as msm_mod
+from mira_tpu_torch.ops.commitment import CommitmentKey
+from mira_tpu_torch.ops.msm import (
+    METHODS,
+    encode_scalars,
+    msm,
+    pippenger_windows,
+    signed_digits,
+    unsigned_digits,
+)
+
+from torch_port_helpers import to_mira
+
+CURVES = [BN254_G1, GRUMPKIN]
+IDS = ["bn254", "grumpkin"]
+ENGINES = ["pippenger", "pippenger-u4", "window", "lane"]
+# the per-lane plain versions cost their 254 (64) steps whatever N is
+SIZES = {"pippenger": 256, "pippenger-u4": 256, "window": 64, "lane": 64}
+
+
+def _input(curve, n, seed):
+    """Seeded bases with duplicates (outside the TPU Pippenger kernels'
+    precondition of distinct bases, exact here) and two identity padding
+    lanes; scalars 0, 1, r - 1, 16 (signed digit -16 with a carry), 16 in
+    every 5-bit window, 2^250 - 1 (every raw digit maximal), the rest seeded
+    by numpy."""
+    rng = random.Random(seed)
+    base = [AffinePoint.random(curve, rng) for _ in range(16)]
+    pts = [base[i % 13] for i in range(n - 2)] + [AffinePoint.identity(curve)] * 2
+    r = curve.scalar_modulus
+    nrng = np.random.default_rng(seed)
+    sc = [int.from_bytes(nrng.bytes(32), "little") % r for _ in range(n)]
+    every = sum(16 << (5 * k) for k in range(50)) % r
+    sc[:6] = [0, 1, r - 1, 16, every, (1 << 250) - 1]
+    return sc, pts
+
+
+def _run(method, curve, sc, pts):
+    ops = jacobian_ops(curve.name)
+    out = msm(encode_scalars(sc, curve.scalar_modulus), ops.encode_points(pts),
+              curve, method)
+    return ops.decode_points(tuple(c[None] for c in out))[0]
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+@pytest.mark.parametrize("method", ENGINES)
+def test_plain_engine_matches_mira_native_msm(method, curve):
+    n = SIZES[method]
+    sc, pts = _input(curve, n, seed=n + len(method))
+    want = msm_native(sc, [to_mira(q) for q in pts])
+    assert to_plain(_run(method, curve, sc, pts)) == to_plain(want)
+
+
+@pytest.mark.parametrize("method", ENGINES)
+def test_plain_engine_small_cases_match_mira_host_msm(method):
+    """P + P, P + (-P), and digit 16 on equal bases (-16 with a carry)
+    beside an identity base: against mira_tpu's pure-Python host MSM."""
+    curve = BN254_G1
+    P = AffinePoint.random(curve, random.Random(3))
+    ident = AffinePoint.identity(curve)
+    for sc, pts in (([1, 1], [P, P]), ([1, 1], [P, P.neg()]),
+                    ([16, 16, 5], [P, P, ident])):
+        want = msm_host(sc, [to_mira(q) for q in pts])
+        assert to_plain(_run(method, curve, sc, pts)) == to_plain(want), (sc, pts)
+
+
+def test_recoding_edges():
+    """The digits kernels 4 and 5 take: signed 5-bit digits in [-16, 15]
+    that rebuild the scalar (16 becomes -16 with a carry; r - 1 and
+    2^256 - 1 carry into the extra window), and raw 4-bit digits."""
+    r = BN254_G1.scalar_modulus
+    vals = [0, 1, 15, 16, 31, 32, r - 1, (1 << 250) - 1, (1 << 256) - 1]
+    words = torch.from_numpy(np.frombuffer(
+        b"".join(v.to_bytes(32, "little") for v in vals), "<i4").reshape(-1, 8).copy())
+    nwin = pippenger_windows(254, True)
+    assert nwin == 52 and pippenger_windows(254, False) == 64
+    for window, nw in ((5, nwin), (5, 53)):
+        d = signed_digits(words, nw, window)
+        assert int(d.min()) >= -16 and int(d.max()) <= 15
+        for v, row in zip(vals, d.tolist()):
+            if v < 1 << (window * nw - 1):
+                assert sum(x << (window * k) for k, x in enumerate(row)) == v
+    assert signed_digits(words, nwin, 5)[3, :2].tolist() == [-16, 1]
+    u = unsigned_digits(words, 64, 4)
+    for v, row in zip(vals, u.tolist()):
+        assert sum(x << (4 * k) for k, x in enumerate(row)) == v
+
+
+def test_dispatcher_takes_the_plain_version_on_the_cpu(monkeypatch):
+    """A CPU tensor never reaches a kernel wrapper; an unknown method
+    raises."""
+    from mira_tpu_torch.ops import cuda_msm
+
+    def boom(*_a, **_k):
+        raise AssertionError("a kernel wrapper was called for a CPU tensor")
+
+    for name in ("msm_cuda", "msm_pippenger_cuda", "msm_lane_cuda"):
+        monkeypatch.setattr(cuda_msm, name, boom)
+    sc, pts = _input(BN254_G1, 8, seed=1)
+    want = to_plain(msm_host(sc, [to_mira(q) for q in pts]))
+    for method in ("bucket", "pippenger", "pippenger-u4"):
+        assert to_plain(_run(method, BN254_G1, sc, pts)) == want
+    with pytest.raises(ValueError):
+        _run("pippenger-u5", BN254_G1, sc, pts)
+    assert METHODS == ("bucket", "pippenger", "pippenger-u4", "window", "lane")
+
+
+@pytest.fixture(scope="module")
+def k8_keys():
+    mira = MiraKey.setup(to_mira(BN254_G1), 8, b"engines")
+    return mira, mira._limbs
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_commitment_key_generic_method(method, k8_keys):
+    """Every generic-base commit of a k=8 key by `method` equals mira_tpu's
+    commitment (its key's points through its native MSM): the one-shot
+    commit of 256 values and commit_ints."""
+    mira, limbs = k8_keys
+    ck = CommitmentKey(BN254_G1, limbs, device="cpu", generic_method=method)
+    vals = [int(v) for v in np.random.default_rng(8).integers(0, 1 << 62, 256)]
+    vals[:3] = [0, 1, BN254_G1.scalar_modulus - 1]
+    want = to_plain(msm_native(vals, mira.points))
+    v = limb_field(BN254_G1.scalar_modulus).encode(vals)
+    assert to_plain(ck.commit_device(v)) == want
+    if method in ("bucket", "pippenger"):
+        assert to_plain(ck.commit_ints(vals[:40])) == to_plain(
+            msm_native(vals[:40], mira.points[:40]))
+
+
+def test_commitment_key_routes_every_generic_commit(monkeypatch, k8_keys):
+    """commit_device, commit_ints and a first sighting in
+    commit_device_many (no table yet) all take the key's generic_method;
+    an unknown method raises, given to the key or set on it."""
+    seen = []
+
+    def spy(scalars, points, curve, method="bucket"):
+        seen.append(method)
+        return msm_mod.msm(scalars, points, curve, method)
+
+    monkeypatch.setattr(commitment_mod, "msm", spy)
+    ck = CommitmentKey(BN254_G1, k8_keys[1], device="cpu",
+                       generic_method="pippenger-u4")
+    v = limb_field(BN254_G1.scalar_modulus).encode(list(range(1, 300)))
+    ck.commit_device(v[:256])
+    ck.commit_ints(list(range(10)))
+    ck.commit_device_many([v[:256]])
+    assert seen == ["pippenger-u4"] * 3
+    with pytest.raises(ValueError):
+        CommitmentKey(BN254_G1, ck._limbs, device="cpu", generic_method="pallas")
+    with pytest.raises(ValueError):
+        ck.generic_method = "pallas"
+    assert ck.generic_method == "pippenger-u4"

@@ -45,7 +45,7 @@ def _setup(circuit_cls, seed):
     m_runner = MiraRunner(K, circuit_cls(seed), [], MIRA_BN254_G1)
     t_runner = CircuitRunner(K, circuit_cls(seed), [], BN254_G1)
     ck_m = MiraKey.setup(MIRA_BN254_G1, K + 2, b"test")
-    ck_t = CommitmentKey(BN254_G1, ck_m._limbs)
+    ck_t = CommitmentKey(BN254_G1, ck_m._limbs, device="cpu")
     return (m_runner.collect_structure(), t_runner.collect_structure(),
             m_runner.collect_witness(), ck_m, ck_t)
 

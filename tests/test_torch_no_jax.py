@@ -1,7 +1,8 @@
 """The port imports neither jax nor mira_tpu: every mira_tpu_torch module
 imports, and a tiny SPS trace + commitment + is_sat + fold evaluation, a
 commitment through a multiples table, a Groth16 prove/verify and a NIFS fold
-step run, in a process where importing jax or mira_tpu raises, and in a plain
+step (and, on a mesh of one, a sharded commit and fold step) run, in a
+process where importing jax or mira_tpu raises, and in a plain
 process both stay unloaded; and no import statement in the port's sources or
 in chip_smoke.py, inside functions included, names jax or mira_tpu."""
 
@@ -60,7 +61,7 @@ class Mul:
 
 runner = CircuitRunner(3, Mul(), [], BN254_G1)
 S = runner.collect_structure()
-ck = CommitmentKey.setup(BN254_G1, 5, b"no-jax")
+ck = CommitmentKey.setup(BN254_G1, 5, b"no-jax", device="cpu")
 trace = S.run_sps_protocol(ck, [], runner.collect_witness(), create_ro(BN254_FQ))
 S.is_sat(ck, create_ro(BN254_FQ), trace.u, trace.w)
 out = S.fold_evaluator("cpu").fold_eval_multi(trace.w.W, trace.w.W, [0, 1, 2],
@@ -82,9 +83,17 @@ from mira_tpu_torch.fields.limbs import limb_field
 from mira_tpu_torch.snark import groth16
 
 v = limb_field(BN254_G1.scalar_modulus).encode(list(range(256)))
-ck8 = CommitmentKey.setup(BN254_G1, 8, b"no-jax")
+ck8 = CommitmentKey.setup(BN254_G1, 8, b"no-jax", device="cpu")
 assert ck8.commit_device_many([v, v]) == [ck8.commit_device(v)] * 2
 assert set(ck8._fb_tables) == {256}
+# a sharded commit and a mesh fold step on a group of one (parallel/)
+from mira_tpu_torch.parallel.mesh import make_mesh
+
+mesh = make_mesh(1, "cpu")
+assert ck8.commit_device(v, mesh=mesh) == ck8.commit_device(v)
+folded_m, _ = VanillaFS.prove(ck, pp, create_ro(BN254_FQ), acc, trace, mesh=mesh)
+assert folded_m.U == folded.U
+mesh.close()
 r1cs, z = groth16.benchmark_r1cs(4)
 pk = groth16.setup(r1cs, random.Random(0))
 assert groth16.verify(pk.vk, groth16.prove(pk, r1cs, z, random.Random(1)), z[1:3])

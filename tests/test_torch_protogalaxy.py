@@ -47,7 +47,7 @@ from torch_port_helpers import (
 def make_trace(seed, ro=None):
     runner = CircuitRunner(K, TwoGate(seed), [], BN254_G1)
     S = runner.collect_structure()
-    ck = CommitmentKey.setup(BN254_G1, K + 2, b"pg")
+    ck = CommitmentKey.setup(BN254_G1, K + 2, b"pg", device="cpu")
     trace = S.run_sps_protocol(ck, [], runner.collect_witness(),
                                ro or create_ro(BN254_FQ))
     return S, ck, trace
