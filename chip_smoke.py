@@ -58,6 +58,15 @@ generic-base MSM engines (kernels 4-7):
   evaluation, the distributed NTT (also at 2^20) == ntt, the sharded MSM ==
   the host MSM, and a k=9 VanillaFS fold with the mesh == without.
 
+The two MSMs of the main path, kernels 1 and 3, are also held to their
+plain versions and the host MSM on the edge cases of kernel 1's sorted
+layout (all-equal, zero and small scalars, r - 1, duplicate and opposite
+bases, identity lanes) at N = 1, 2, 255, and timed per phase (their C calls:
+sort or recode, accumulate, reduce, finish); kernel 1 also at 2^21.  Where
+a copy of the previous sources (commit 1a88dc7) lies at PREV_CSRC
+(git-ignored), their designs of kernels 1 and 3 are built beside this
+tree's and timed in turns with them.
+
 Kernel launches are counted over each path.  The keys of both paths come
 from one background thread started right after the build (the native
 keygen releases the GIL): the k=17 path's 2^21 keys while the small checks
@@ -67,9 +76,10 @@ With --profile DIR it runs one more k=17 fold step and one more mesh fold
 step under torch.profiler and prints the device's busy share of each step
 and its ops by device time and by host time.
 
-Prints the device lines, per-phase seconds, one JSON line of kernels, the
-card's name and power limit, and last a JSON line {"ok": true, "device":
-...}.  Any failed phase raises and the script exits non-zero.  It exits
+Prints the device lines, per-phase seconds, the milliseconds each kernel
+loses to its bound over all paths and over the main path alone, one JSON
+line of kernels, the card's name and power limit, and last a JSON line
+{"ok": true, "device": ...}.  Any failed phase raises and the script exits non-zero.  It exits
 non-zero without a result when no CUDA device is visible or when run
 outside a checkout of the repository.
 """
@@ -176,28 +186,133 @@ def bound(nbytes: float, products: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": by}
 
 
-def msm_bucket_bound(n: int, curve) -> dict:
-    """What a signed 5-bit Pippenger needs: per window one mixed addition per
-    point into its bucket and two full additions per bucket in the running
-    sum.  How the kernel splits the points into chunks and reduces them is
-    its own cost and is not counted."""
-    from mira_tpu_torch.ops.msm import NBUCKET, num_windows
+def msm_generic_products(n: int, curve) -> int:
+    """Montgomery products a generic-base MSM of n points needs, whatever its
+    design: the fewest over window widths c = 2..20 of a signed c-bit
+    Pippenger, num_windows(bits, c) x (a mixed addition per point into its
+    bucket and two full additions per bucket in the running sum)."""
+    from mira_tpu_torch.ops.msm import num_windows
 
-    nwin = num_windows(curve.scalar_modulus.bit_length())
-    products = nwin * (n * MADD_PRODUCTS + 2 * NBUCKET * ADD_PRODUCTS)
-    return bound(n * 4 * 32 + 96, products)
+    bits = curve.scalar_modulus.bit_length()
+    return min(num_windows(bits, c) * (n * MADD_PRODUCTS
+                                       + 2 * (1 << (c - 1)) * ADD_PRODUCTS)
+               for c in range(2, 21))
+
+
+def msm_bucket_bound(n: int, curve) -> dict:
+    """The bound of kernels 1 and 4-7 (one function): `msm_generic_products`
+    and the bases and scalars read once.  How a kernel sorts, splits and
+    reduces is its own cost and is not counted."""
+    return bound(n * 4 * 32 + 96, msm_generic_products(n, curve))
 
 
 def msm_fixed_bound(n: int, window: int, curve) -> dict:
     """What a fixed-base signed-digit MSM needs: one table lookup (64 B of
     the 2^(w-1) entries per lane, each counted once) and one mixed addition
-    per point and window.  The kernel's per-chunk partial sums are its own
-    cost and are not counted."""
+    per point and window.  The kernel's per-block partial sums are its own
+    cost and are not counted.  `generic_bound_ms` beside it: the least a
+    generic-base MSM of the same width needs (`msm_bucket_bound`), the
+    question whether the table still pays on this card."""
     from mira_tpu_torch.ops.msm import num_windows
 
     nwin = num_windows(curve.scalar_modulus.bit_length(), window)
     products = nwin * n * MADD_PRODUCTS
-    return bound(n * 32 + n * (1 << (window - 1)) * 64 + 96, products)
+    return {**bound(n * 32 + n * (1 << (window - 1)) * 64 + 96, products),
+            "generic_bound_ms": msm_bucket_bound(n, curve)["bound_ms"]}
+
+
+def timed_phases(torch, phases, reps: int) -> dict:
+    """Milliseconds of each phase of a kernel split into its C calls
+    (ops/cuda_msm.py `bucket_phases`, `fixed_phases`): CUDA events between
+    the calls, the mean over `reps` runs after one warm run."""
+    from mira_tpu_torch import _build
+
+    def run_all(marks):
+        for i, (name, call) in enumerate(phases):
+            _build.check(call(), name)
+            if marks:
+                marks[i + 1].record()
+
+    run_all(None)
+    runs = []
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(phases) + 1)]
+        marks[0].record()
+        run_all(marks)
+        runs.append(marks)
+    torch.cuda.synchronize()
+    return {name: sum(m[i].elapsed_time(m[i + 1]) for m in runs) / reps
+            for i, (name, _) in enumerate(phases)}
+
+
+# The previous designs of kernels 1 and 3 (commit 1a88dc7), for a paired
+# timing where a copy of their sources lies in the repository's ignored
+# build directory: unpack `git archive 1a88dc7 mira_tpu_torch/csrc` into
+# mira_tpu_torch/build/prev.
+PREV_CSRC = os.path.join("mira_tpu_torch", "build", "prev", "mira_tpu_torch", "csrc")
+
+
+def prev_kernels(root: str):
+    """(bucket(s, P, curve), fixed(s, table, curve, window)) of the previous
+    sources under PREV_CSRC, built by nvcc into their own library, or None
+    when that copy is absent.  The arguments as their wrappers made them:
+    5-bit windows, ~64 points per thread, reduce groups of 32."""
+    import ctypes
+
+    import torch
+
+    from mira_tpu_torch import _build
+    from mira_tpu_torch.ops.cuda_msm import _thresholds_on, _xyzz
+    from mira_tpu_torch.ops.msm import num_windows
+
+    src = os.path.join(root, PREV_CSRC)
+    if not os.path.isdir(src):
+        return None
+    so = os.path.join(_build.BUILD, "libprev_msm.so")
+    if not os.path.exists(so):
+        os.makedirs(_build.BUILD, exist_ok=True)
+        report = _build._build(so, [os.path.join(src, f) for f in ("msm_bucket.cu",
+                                                                   "msm_fixed.cu")])
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  previous ptxas: {line.strip()}")
+    lib = ctypes.CDLL(so)
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    lib.mira_msm_bucket.argtypes = [I_, P_, P_, P_, P_, I_, I_, I_, I_] + [P_] * 7
+    lib.mira_msm_fixed.argtypes = [I_, P_, P_, I_, I_, I_, I_, I_] + [P_] * 6
+    lib.mira_msm_bucket.restype = lib.mira_msm_fixed.restype = I_
+
+    def chunks(n):
+        return max(1, min(1024, (n + 63) // 64))
+
+    def bucket(s, P, curve):
+        n, dev = s.shape[0], s.device
+        nwin, nch = num_windows(curve.scalar_modulus.bit_length()), chunks(n)
+        bufs = [_xyzz(nwin * nch * 16, dev), _xyzz(nwin * -(-nch // 32) * 16, dev),
+                _xyzz(nwin * 16, dev), _xyzz(nwin, dev)]
+        out = torch.empty(3, 8, dtype=torch.int32, device=dev)
+        _build.check(lib.mira_msm_bucket(
+            _build.field_id(curve.base_modulus), *(t.data_ptr() for t in (s, *P)),
+            n, nwin, nch, 32, _thresholds_on(nwin, 5, dev).data_ptr(),
+            *(b.data_ptr() for b in bufs), out.data_ptr(),
+            _build.stream_ptr(dev)), "previous msm_bucket")
+        return (out[0], out[1], out[2])
+
+    def fixed(s, tab, curve, window):
+        n, dev = s.shape[0], s.device
+        nwin, nch = num_windows(curve.scalar_modulus.bit_length(), window), chunks(n)
+        bufs = [_xyzz(nwin * nch, dev), _xyzz(nwin * -(-nch // 32), dev),
+                _xyzz(nwin, dev)]
+        out = torch.empty(3, 8, dtype=torch.int32, device=dev)
+        _build.check(lib.mira_msm_fixed(
+            _build.field_id(curve.base_modulus), s.data_ptr(), tab.data_ptr(), n,
+            window, nwin, nch, 32, _thresholds_on(nwin, window, dev).data_ptr(),
+            *(b.data_ptr() for b in bufs), out.data_ptr(),
+            _build.stream_ptr(dev)), "previous msm_fixed")
+        return (out[0], out[1], out[2])
+
+    return bucket, fixed
 
 
 def fixed_table_bound(n: int, window: int, curve) -> dict:
@@ -382,6 +497,82 @@ def check_msm_small(torch, dev, rng):
         "kernel == plain == host on both curves (exact)")
 
 
+LAYOUT_CASES = ("all_equal", "all_zero", "below_2c", "r_minus_1",
+                "dup_opposite", "identity_lanes")
+
+
+def layout_case(curve, n, case, rng):
+    """tests/test_torch_msm_layout.py's edge cases of kernel 1's layout at
+    width n: all-equal scalars (one bucket per window holds every point),
+    all zero, scalars below 2^c, r - 1, duplicate and opposite bases with
+    equal scalars, identity lanes."""
+    import random
+
+    from mira_tpu_torch.curves.torch_curve import AffinePoint
+    from mira_tpu_torch.ops.msm import bucket_window
+
+    r = curve.scalar_modulus
+    pr = random.Random(int(rng.integers(1 << 30)))
+    base = [AffinePoint.random(curve, pr) for _ in range(5)]
+    pts = [base[i % 5] for i in range(n)]
+    sc = [pr.randrange(r) for _ in range(n)]
+    if case == "all_equal":
+        sc = [sc[0]] * n
+    elif case == "all_zero":
+        sc = [0] * n
+    elif case == "below_2c":
+        sc = [v % (1 << bucket_window(n)) for v in sc]
+    elif case == "r_minus_1":
+        sc = [r - 1] * n
+    elif case == "dup_opposite":
+        pts = [base[(i // 2) % 5].neg() if i % 4 == 1 else base[(i // 2) % 5]
+               for i in range(n)]
+        sc = [sc[i - i % 2] for i in range(n)]
+    elif case == "identity_lanes":
+        pts = [AffinePoint.identity(curve) if i % 3 == 0 else p
+               for i, p in enumerate(pts)]
+    return sc, pts
+
+
+def check_msm_layout_cases(torch, dev, rng):
+    """Kernels 1 and 3 (both windows) against their plain versions and the
+    host MSM at N = 1, 2 and 255 on both curves, on the layout's edge cases.
+    Returns the largest |kernel - plain| over them (0)."""
+    from mira_tpu_torch.convert import msm_reference
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
+    from mira_tpu_torch.curves.torch_curve import jacobian_ops
+    from mira_tpu_torch.ops import cuda_msm
+    from mira_tpu_torch.ops.msm import encode_scalars, msm_fixed_plain, msm_plain
+
+    err = 0
+    for curve in (BN254_G1, GRUMPKIN):
+        ops = jacobian_ops(curve.name)
+        for n in (1, 2, 255):
+            for case in LAYOUT_CASES:
+                sc, pts = layout_case(curve, n, case, rng)
+                s = encode_scalars(sc, curve.scalar_modulus, dev)
+                P = ops.encode_points(pts, dev)
+                ref = point_ints(msm_reference(s, P, curve))
+                got = point_ints(decode_one(curve, cuda_msm.msm_cuda(s, P, curve)))
+                plain = point_ints(decode_one(curve, msm_plain(s, P, curve)))
+                err = max(err, max_abs_err(got, plain))
+                if not got == plain == ref:
+                    raise AssertionError(f"msm_bucket {case} n={n} on {curve.name}")
+                for window in cuda_msm.FIXED_WINDOWS:
+                    tab = cuda_msm.fixed_table_cuda(P, curve, window)
+                    got = point_ints(decode_one(
+                        curve, cuda_msm.msm_fixed_cuda(s, tab, curve, window)))
+                    plain = point_ints(decode_one(
+                        curve, msm_fixed_plain(s, tab, curve, window)))
+                    err = max(err, max_abs_err(got, plain))
+                    if not got == plain == ref:
+                        raise AssertionError(f"msm_fixed {case} n={n} w={window} "
+                                             f"on {curve.name}")
+    log(f"msm_bucket, msm_fixed (w = 5, 6) at n = 1, 2, 255 on {list(LAYOUT_CASES)}: "
+        "kernel == plain == host on both curves (exact)")
+    return err
+
+
 def decode_one(curve, out):
     from mira_tpu_torch.curves.torch_curve import jacobian_ops
 
@@ -502,23 +693,35 @@ def reset_launch_counts():
     cuda_poseidon.launches = 0
 
 
-def fixed_checks(torch, dev, rng, ck, shapes, path):
+def fixed_checks(torch, dev, rng, ck, shapes, path, prev=None):
     """`fixed_timings` at every (lanes, window) in `shapes`, the tables
     that `ck` built on `path`, over its first key points; returns the two
     lists of results (msm_fixed, fixed_table)."""
     msms, tables = [], []
     for n, window in shapes:
         m, t = fixed_timings(torch, dev, rng, ck.curve,
-                             ck._encode_rows(ck._limbs[:n]), window)
+                             ck._encode_rows(ck._limbs[:n]), window, prev=prev)
         msms.append({"path": path, "curve": ck.curve.name, **m})
         tables.append({"path": path, "curve": ck.curve.name, **t})
     return msms, tables
 
 
-def fixed_timings(torch, dev, rng, curve, points, window, reps=5):
+def paired(fn_new, fn_old, reps):
+    """(new ms, previous ms) in turns, the previous design first and last:
+    each the mean of its two timings of `reps` calls."""
+    o1 = timed_cuda(fn_old, reps)
+    n1 = timed_cuda(fn_new, reps)
+    n2 = timed_cuda(fn_new, reps)
+    o2 = timed_cuda(fn_old, reps)
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def fixed_timings(torch, dev, rng, curve, points, window, reps=5, prev=None):
     """Kernel and plain times of the table build and of the fixed-base MSM
-    over `points` at `window`, random canonical scalars; both kernels must
-    equal their plain versions."""
+    over `points` at `window`, random canonical scalars, and the MSM's
+    per-phase times; both kernels must equal their plain versions.  With
+    `prev` (`prev_kernels`), the previous design of the MSM is timed in
+    turns with this one and must agree with it."""
     from mira_tpu_torch.ops import cuda_msm
     from mira_tpu_torch.ops.msm import msm_fixed_plain, precompute_fixed_table_plain
 
@@ -534,14 +737,26 @@ def fixed_timings(torch, dev, rng, curve, points, window, reps=5):
     del plain_tab
     s = _random_plain(rng, n, dev)
     ms = timed_cuda(lambda: cuda_msm.msm_fixed_cuda(s, tab, curve, window), reps)
+    phases = timed_phases(torch, cuda_msm.fixed_phases(s, tab, curve, window)[0], reps)
     want, plain_ms = timed_once(lambda: msm_fixed_plain(s, tab, curve, window))
-    got = decode_one(curve, cuda_msm.msm_fixed_cuda(s, tab, curve, window))
-    err = max_abs_err(point_ints(got), point_ints(decode_one(curve, want)))
+    got = point_ints(decode_one(curve, cuda_msm.msm_fixed_cuda(s, tab, curve, window)))
+    err = max_abs_err(got, point_ints(decode_one(curve, want)))
     if err:
         raise AssertionError(f"msm_fixed n={n} w={window}: kernel != plain")
+    extra = ""
+    prev_at = {}
+    if prev is not None:
+        if point_ints(decode_one(curve, prev[1](s, tab, curve, window))) != got:
+            raise AssertionError(f"msm_fixed n={n} w={window}: != the previous kernel")
+        new_ms, old_ms = paired(lambda: cuda_msm.msm_fixed_cuda(s, tab, curve, window),
+                                lambda: prev[1](s, tab, curve, window), reps)
+        prev_at = {"paired_ms": new_ms, "prev_ms": old_ms}
+        extra = f", paired with the previous design's {new_ms:.3f} vs {old_ms:.3f} ms"
     log(f"n={n} w={window} {curve.name}: fixed_table {tab_ms:.3f} ms (plain "
-        f"{tab_plain_ms:.3f} ms), msm_fixed {ms:.3f} ms (plain {plain_ms:.3f} ms)")
+        f"{tab_plain_ms:.3f} ms), msm_fixed {ms:.3f} ms (plain {plain_ms:.3f} ms; "
+        f"phases {json.dumps({k: round(v, 3) for k, v in phases.items()})}{extra})")
     return ({"n": n, "window": window, "ms": ms, "plain_ms": plain_ms,
+             "phases_ms": phases, **prev_at,
              "max_abs_err": err, **msm_fixed_bound(n, window, curve)},
             {"n": n, "window": window, "ms": tab_ms, "plain_ms": tab_plain_ms,
              "max_abs_err": tab_err, **fixed_table_bound(n, window, curve)})
@@ -1110,15 +1325,13 @@ def check_msm_engines_small(torch, dev, rng):
         "plain == host on both curves (exact)")
 
 
-def engine_timings(torch, dev, rng, ck, s17, P17, want17, plain17_ms):
+def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21):
     """Kernels 4-7 at the mesh path's widths on BN254: at 2^17 (the
     cross-term width) held against `want17`, the bucket MSM's plain version
     on the same inputs (computed once), and each timed against its own plain
-    version; at 2^21 (the SPS commit width, the key's points) against the
-    bucket kernel and the host MSM.  Returns {method: [entry at 2^17, entry
-    at 2^21]}."""
-    from mira_tpu_torch.convert import msm_reference
-    from mira_tpu_torch.ops import cuda_msm
+    version; at 2^21 (the SPS commit width, the key's points) against
+    `host21`, the host MSM of (s21, P21), which the bucket kernel equals.
+    Returns {method: [entry at 2^17, entry at 2^21]}."""
     from mira_tpu_torch.ops.msm import msm, plain_engine
 
     curve = ck.curve
@@ -1138,15 +1351,7 @@ def engine_timings(torch, dev, rng, ck, s17, P17, want17, plain17_ms):
         log(f"{method} 2^17: {ms:.3f} ms (plain {plain_ms:.1f} ms); == the "
             "bucket MSM's plain version; bound "
             f"{out[method][-1]['bound_ms']:.3f} ms")
-    n = 1 << 21
-    s = _random_plain(rng, n, dev)
-    P = ck._enc_slice(n)
-    bucket = point_ints(decode_one(curve, cuda_msm.msm_cuda(s, P, curve)))
-    t0 = time.perf_counter()
-    host = point_ints(msm_reference(s, P, curve))
-    host_s = time.perf_counter() - t0
-    if bucket != host:
-        raise AssertionError("bucket MSM 2^21 != host MSM")
+    n, s, P, host = 1 << 21, s21, P21, host21
     for method in ENGINES:
         ms = timed_cuda(lambda: msm(s, P, curve, method), ENGINE_REPS[method])
         err = max_abs_err(point_ints(decode_one(curve, msm(s, P, curve, method))),
@@ -1155,8 +1360,8 @@ def engine_timings(torch, dev, rng, ck, s17, P17, want17, plain17_ms):
             raise AssertionError(f"{method} 2^21: kernel != bucket kernel == host")
         out[method].append({"n": n, "ms": ms, "plain_ms": None, "max_abs_err": err,
                             **msm_bucket_bound(n, curve)})
-        log(f"{method} 2^21: {ms:.3f} ms; == bucket kernel == host MSM "
-            f"({host_s:.2f} s); bound {out[method][-1]['bound_ms']:.3f} ms")
+        log(f"{method} 2^21: {ms:.3f} ms; == bucket kernel == host MSM; bound "
+            f"{out[method][-1]['bound_ms']:.3f} ms")
     return out
 
 
@@ -1309,7 +1514,8 @@ def main() -> int:
     from mira_tpu_torch.ivc.public_params import CircuitSide, PublicParams
     from mira_tpu_torch.ops import cuda_msm
     from mira_tpu_torch.ops.commitment import CommitmentKey
-    from mira_tpu_torch.ops.msm import fixed_base_window, msm_plain
+    from mira_tpu_torch.convert import msm_reference
+    from mira_tpu_torch.ops.msm import bucket_window, fixed_base_window, msm_plain
     from mira_tpu_torch.polynomial import fold_evaluator as fe
     from mira_tpu_torch.utils import tracing
     from mira_tpu_torch.workloads import snarkstar
@@ -1326,12 +1532,19 @@ def main() -> int:
     phase("device", t0)
 
     t0 = time.perf_counter()
+    # the previous kernels, where their copy is present, build beside these
+    pool = ThreadPoolExecutor(1)
+    prev_build = pool.submit(prev_kernels, root)
+    pool.shutdown(wait=False)
     _build.lib()
     built = _build.build_seconds
     log(f"kernel build: {'%.1f s' % built if built is not None else 'cached'}")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    prev = prev_build.result()
+    log(f"previous MSM kernels for the paired timing: "
+        f"{'built from ' + PREV_CSRC if prev else 'no copy at ' + PREV_CSRC + ', not timed'}")
     phase("build", t0)
     # the keys after the build, whose nvcc processes want every core: the
     # k=17 path's first, then SnarkStar's, which grow from them
@@ -1342,6 +1555,7 @@ def main() -> int:
     t0 = time.perf_counter()
     check_field_kernels(torch, dev, rng)
     check_msm_small(torch, dev, rng)
+    layout_err = check_msm_layout_cases(torch, dev, rng)
     check_fixed_small(torch, dev, rng)
     check_ntt_small(torch, dev, rng)
     check_poseidon_small(torch, dev, rng)
@@ -1436,14 +1650,44 @@ def main() -> int:
     if err:
         raise AssertionError(f"bucket MSM 2^{K}: kernel != plain")
     bucket_plain17, bucket_plain17_ms = want, ms_p  # shared by kernels 4-7
+    bucket_at = [{"n": n, "ms": ms_k, "plain_ms": ms_p, "max_abs_err": err,
+                  **msm_bucket_bound(n, BN254_G1)}]
+    # at the SPS commit width 2^21 against the host MSM (whose result the
+    # timings of kernels 4-7 reuse); the plain version is not run there
+    s21, P21 = _random_plain(rng, 1 << 21, dev), ck1._enc_slice(1 << 21)
+    host21 = point_ints(msm_reference(s21, P21, BN254_G1))
+    err21 = max_abs_err(point_ints(decode_one(
+        BN254_G1, cuda_msm.msm_cuda(s21, P21, BN254_G1))), host21)
+    if err21:
+        raise AssertionError("bucket MSM 2^21: kernel != host")
+    bucket_at.append({"n": 1 << 21, "ms": timed_cuda(
+        lambda: cuda_msm.msm_cuda(s21, P21, BN254_G1), 5), "plain_ms": None,
+        "max_abs_err": err21, **msm_bucket_bound(1 << 21, BN254_G1)})
+    for a, (sa, Pa) in zip(bucket_at, ((s, P), (s21, P21))):
+        a["window"] = bucket_window(a["n"])
+        a["phases_ms"] = timed_phases(
+            torch, cuda_msm.bucket_phases(sa, Pa, BN254_G1)[0], 5)
+        if prev is not None:
+            if (point_ints(decode_one(BN254_G1, prev[0](sa, Pa, BN254_G1)))
+                    != point_ints(decode_one(BN254_G1,
+                                             cuda_msm.msm_cuda(sa, Pa, BN254_G1)))):
+                raise AssertionError(f"bucket MSM n={a['n']}: != the previous kernel")
+            a["paired_ms"], a["prev_ms"] = paired(
+                lambda: cuda_msm.msm_cuda(sa, Pa, BN254_G1),
+                lambda: prev[0](sa, Pa, BN254_G1), 5)
+        log(f"msm_bucket n={a['n']} c={a['window']}: {a['ms']:.3f} ms, phases "
+            f"{json.dumps({k: round(v, 3) for k, v in a['phases_ms'].items()})}"
+            + (f", paired with the previous design's {a['paired_ms']:.3f} vs "
+               f"{a['prev_ms']:.3f} ms" if prev is not None else ""))
     kernels.append({
         "name": "msm_bucket", "route": "cuda",
         "source": "mira_tpu_torch/csrc/msm_bucket.cu",
         "replaces": "mira_tpu/ops/pallas_msm.py:781",
-        "launches": counts["msm_bucket"], "max_abs_err": err,
+        "launches": counts["msm_bucket"], "max_abs_err": max(err, err21, layout_err),
         "ms": ms_k, "plain_ms": ms_p, **msm_bucket_bound(n, BN254_G1),
-        "library_ms": None,
-        "shape": f"N=2^{K} bn254, full-width scalars",
+        "library_ms": None, "phases_ms": bucket_at[0]["phases_ms"],
+        "shape": f"N=2^{K} bn254, full-width scalars, c={bucket_at[0]['window']}",
+        "at": bucket_at,
     })
     ev, fops, ops_t, n_regs, consts, w1, w2, ch, jm, js = fe_state
     jsel = slice(1, len(js) - 1)  # the interior points a fold step evaluates
@@ -1482,7 +1726,8 @@ def main() -> int:
     msm_at, tab_at = [], []
     for ck in (ck1, ck2):
         for shapes, path in ((ck.table_shapes(), f"k={K}"), (early, "snarkstar")):
-            m, t = fixed_checks(torch, dev, rng, ck, shapes, path)
+            m, t = fixed_checks(torch, dev, rng, ck, shapes, path,
+                                prev if path == f"k={K}" else None)
             msm_at += m
             tab_at += t
     head = msm_at[0]  # the BN254 delta commit's
@@ -1494,7 +1739,8 @@ def main() -> int:
         "max_abs_err": max(m["max_abs_err"] for m in msm_at),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "phases_ms": head["phases_ms"],
+        "generic_bound_ms": head["generic_bound_ms"],
         "shape": f"N={head['n']} (the k={K} delta width) {head['curve']}, "
                  f"w={head['window']}", "at": msm_at,
     })
@@ -1513,8 +1759,8 @@ def main() -> int:
 
     # -- kernels 4-7: timings at the mesh path's widths, their paths ----------
     t0 = time.perf_counter()
-    engine_at = engine_timings(torch, dev, rng, ck1, s, P, bucket_plain17,
-                               bucket_plain17_ms)
+    engine_at = engine_timings(torch, ck1, s, P, bucket_plain17,
+                               bucket_plain17_ms, s21, P21, host21)
     phase("msm_engine_timing", t0)
     t0 = time.perf_counter()
     deciders = run_engine_deciders(torch, ivc)
@@ -1617,7 +1863,7 @@ def main() -> int:
         t0 = time.perf_counter()
         profile_fold_step(torch, ivc, args.profile)
         phase("profile", t0)
-    del ivc, pp, ck, ck1, ck2, P, s, fe_state, ev, w1, w2
+    del ivc, pp, ck, ck1, ck2, P, s, s21, P21, fe_state, ev, w1, w2
 
     # -- SnarkStar batch 1 at k=19 with real Groth16 proofs -------------------
     t0 = time.perf_counter()
@@ -1664,6 +1910,16 @@ def main() -> int:
         "largest first: " + json.dumps(
             {name: [round(v, 3), n] for name, (v, n) in
              sorted(lost.items(), key=lambda kv: -kv[1][0])}))
+    # the same over the two default-configuration paths alone (the k=17 fold
+    # steps and SnarkStar's run), which rank the kernels to redesign
+    main = {k["name"]: ((k["launches"] + k["launches_snarkstar"])
+                        * (k["ms"] - k["bound_ms"]),
+                        [k["launches"], k["launches_snarkstar"]])
+            for k in kernels if k["name"] in MSM_PATH_KERNELS}
+    log("ms lost on the main path, launches (k=17 fold steps, SnarkStar) x "
+        "(ms - bound_ms), largest first: " + json.dumps(
+            {name: [round(v, 3), n] for name, (v, n) in
+             sorted(main.items(), key=lambda kv: -kv[1][0])}))
     log(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -14,9 +14,9 @@
 //     that runs in order and reduces them in the last step; blocks here run
 //     in no order, so each thread walks its own chunk of points (a loop in
 //     place of the sequential grid) and keeps its window accumulators in a
-//     scratch buffer of the caller's, (nwin, nchunks) XYZZ points, which two
-//     launches of msm_common.cuh's chunk_reduce sum across chunks and a third
-//     runs Horner over;
+//     scratch buffer of the caller's, (nwin, nchunks) XYZZ points, which
+//     msm_common.cuh's window_reduce sums across chunks by block trees and
+//     finish_terms joins over the windows;
 //   - it selects a table entry by a masked select over all 16 entries (Mosaic
 //     has no data-dependent gather); here a thread indexes its table.  The
 //     table, 16 XYZZ points = 2 KiB per thread, is in local memory: in shared
@@ -121,7 +121,7 @@ __global__ void pippenger_acc(const uint32_t* sc, const uint32_t* X,
 
 template <class F, bool SIGNED>
 static int launch(const uint32_t* sc, const uint32_t* X, const uint32_t* Y,
-                  const uint32_t* Z, int n, int nwin, int nchunks, int group,
+                  const uint32_t* Z, int n, int nwin, int nchunks,
                   const uint32_t* thr, xyzz* acc, xyzz* partial, xyzz* ws,
                   uint32_t* out, cudaStream_t s) {
   const int T = 128;
@@ -129,23 +129,21 @@ static int launch(const uint32_t* sc, const uint32_t* X, const uint32_t* Y,
       sc, X, Y, Z, n, nwin, nchunks, thr, acc);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  err = reduce_chunks<F>(acc, nwin, nchunks, 1, group, partial, ws, s);
+  err = reduce_windows<F>(acc, nwin, nchunks, partial, ws, s);
   if (err) return err;
-  horner<F><<<1, 1, 0, s>>>(ws, nwin, SIGNED ? 5 : 4, out);
-  return (int)cudaGetLastError();
+  return launch_finish<F>(ws, nwin, SIGNED ? 5 : 4, out, s);
 }
 
 // field 0: BN254 G1 (coordinates in Fq); field 1: Grumpkin (in Fr).  signed
 // 1: kernel 4 (nwin = 52 for 254-bit scalars; thr: (nwin, 8) carry
 // thresholds of the 5-bit recoding), 0: kernel 5 (nwin = 64; thr unused).
 // sc, X, Y, Z: (n, 8) words, bases affine or identity (Z in {0, R mod p});
-// group: chunks per thread in the first reduce pass; scratch sized by the
-// caller in XYZZ points (32 words each): acc nwin*nchunks, partial
-// nwin*ceil(nchunks/group), ws nwin; out: (3, 8) canonical Jacobian
-// Montgomery words.
+// scratch sized by the caller in XYZZ points (32 words each): acc
+// nwin*nchunks, partial reduce_tmp_points(nwin, nchunks) (ops/cuda_msm.py),
+// ws nwin; out: (3, 8) canonical Jacobian Montgomery words.
 extern "C" int mira_msm_pippenger(int field, int is_signed, const void* sc,
                                   const void* X, const void* Y, const void* Z,
-                                  int n, int nwin, int nchunks, int group,
+                                  int n, int nwin, int nchunks,
                                   const void* thr, void* acc, void* partial,
                                   void* ws, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -153,7 +151,7 @@ extern "C" int mira_msm_pippenger(int field, int is_signed, const void* sc,
     using F = decltype(tag);
     return launch<F, decltype(sgn)::value>(
         (const uint32_t*)sc, (const uint32_t*)X, (const uint32_t*)Y,
-        (const uint32_t*)Z, n, nwin, nchunks, group, (const uint32_t*)thr,
+        (const uint32_t*)Z, n, nwin, nchunks, (const uint32_t*)thr,
         (xyzz*)acc, (xyzz*)partial, (xyzz*)ws, (uint32_t*)out, s);
   };
   using S1 = std::integral_constant<bool, true>;

@@ -25,9 +25,10 @@ from ..curves.host import CurveParams
 from .. import _build
 from ..fields.limbs import NUM_WORDS
 from .msm import (
-    NBUCKET,
     PIPPENGER_WINDOW,
     WINDOW,
+    bucket_window,
+    merge_levels,
     msm_fixed_plain,
     num_windows,
     pippenger_windows,
@@ -45,7 +46,8 @@ PIPPENGER_MAX_CHUNKS = 32768  # threads of the Pippenger kernel's first pass
 LANE_BLOCK = 128  # lanes per block of the per-lane kernel (csrc LANE_T)
 FIXED_WINDOWS = (5, 6)  # the windows the fixed-base kernels are built for
 _XYZZ_WORDS = 4 * NUM_WORDS
-REDUCE_GROUP = 32  # chunks per thread in the kernel's first bucket-reduce pass
+RB_SPAN = 1024  # parts per block of csrc/msm_common.cuh window_reduce
+FIXED_BLOCK = 128  # threads of an accumulate block of csrc/msm_fixed.cu (FIX_T)
 
 
 @lru_cache(maxsize=None)
@@ -63,10 +65,24 @@ def carry_thresholds(nwin: int, window: int = WINDOW) -> np.ndarray:
     return out
 
 
-def chunks_for(n: int) -> int:
-    """Point chunks per window in kernel A: ~64 points per thread, at most
-    1024 chunks (~53k threads over 52 windows)."""
-    return max(1, min(1024, (n + 63) // 64))
+def reduce_tmp_points(nwin: int, nparts: int) -> int:
+    """XYZZ points that msm_common.cuh `reduce_windows` needs for its
+    intermediate levels when it sums (nwin, nparts) points per window (at
+    least one, so that the buffer has an address)."""
+    total = 0
+    while nparts > RB_SPAN:
+        nparts = -(-nparts // RB_SPAN)
+        total += nwin * nparts
+    return max(1, total)
+
+
+def bits_groups(c: int) -> int:
+    """Blocks of csrc/msm_bucket.cu `bucket_bits` per (window, bit)."""
+    return max(1, -(-(1 << (c - 2)) // RB_SPAN))
+
+
+def _xyzz(n: int, dev) -> torch.Tensor:
+    return torch.empty(max(1, n), _XYZZ_WORDS, dtype=torch.int32, device=dev)
 
 
 def _check_msm_args(scalars, points, what: str):
@@ -97,30 +113,59 @@ def msm_cuda(scalars: torch.Tensor, points, curve: CurveParams):
     bases, zero scalars and identity lanes are exact (complete XYZZ
     formulas, no offset point)."""
     global launches
-    field = _build.field_id(curve.base_modulus)
-    n, dev, (scalars, X, Y, Z) = _check_msm_args(scalars, points, "msm_cuda")
-    if n == 0:
-        return _identity(curve, dev)
-    nwin = num_windows(curve.scalar_modulus.bit_length())
-    nchunks = chunks_for(n)
-    thr = _thresholds_on(nwin, WINDOW, dev)
-    buckets = torch.empty(nwin * nchunks * NBUCKET, _XYZZ_WORDS,
-                          dtype=torch.int32, device=dev)
-    ngroups = -(-nchunks // REDUCE_GROUP)
-    partial = torch.empty(nwin * ngroups * NBUCKET, _XYZZ_WORDS,
-                          dtype=torch.int32, device=dev)
-    wb = torch.empty(nwin * NBUCKET, _XYZZ_WORDS, dtype=torch.int32, device=dev)
-    ws = torch.empty(nwin, _XYZZ_WORDS, dtype=torch.int32, device=dev)
-    out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
-    err = _build.lib().mira_msm_bucket(
-        field, scalars.data_ptr(), X.data_ptr(), Y.data_ptr(), Z.data_ptr(), n, nwin,
-        nchunks, REDUCE_GROUP, thr.data_ptr(), buckets.data_ptr(),
-        partial.data_ptr(), wb.data_ptr(), ws.data_ptr(), out.data_ptr(),
-        _build.stream_ptr(dev),
-    )
-    _build.check(err, "msm_bucket")
+    phases, out = bucket_phases(scalars, points, curve)
+    if out is None:
+        return phases
+    for name, run in phases:
+        _build.check(run(), f"msm_bucket {name}")
     launches += 1
     return (out[0], out[1], out[2])
+
+
+def bucket_phases(scalars: torch.Tensor, points, curve: CurveParams,
+                  c: int = 0):
+    """Kernel 1 as its four C calls: ([(phase, call)], out), the calls
+    returning a cudaError_t, to be made in order ("sort", "accumulate",
+    "reduce", "finish"); `msm_cuda` makes them, and a timing harness may
+    time them one by one.  c: the window, bucket_window(N) unless given.
+    For N = 0 returns (the identity, None)."""
+    field = _build.field_id(curve.base_modulus)
+    n, dev, (sc, X, Y, Z) = _check_msm_args(scalars, points, "msm_cuda")
+    if n == 0:
+        return _identity(curve, dev), None
+    c = c or bucket_window(n, curve.scalar_modulus.bit_length())
+    nwin = num_windows(curve.scalar_modulus.bit_length(), c)
+    m = nwin << (c - 1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    digits = torch.empty(nwin, n, dtype=torch.int16, device=dev)
+    counts, cursor = torch.empty(m, **i32), torch.empty(m, **i32)
+    offsets = torch.empty(m + 1, **i32)
+    records = torch.empty(nwin * n, 2, **i32)
+    lib, st = _build.lib(), _build.stream_ptr(dev)
+    seg = lib.mira_msm_bucket_seg(field, n, nwin)  # ~SEG, whole waves
+    nseg = -(-nwin * n // seg)
+    slots = sum(merge_levels(nseg))
+    buckets, heads = _xyzz(m, dev), _xyzz(slots, dev)
+    hkeys = torch.empty(slots, **i32)
+    ng = bits_groups(c)
+    bits, tmp = _xyzz(nwin * c * ng, dev), _xyzz(reduce_tmp_points(nwin, c * ng), dev)
+    ws = _xyzz(nwin, dev)
+    out = torch.empty(3, NUM_WORDS, **i32)
+    ptr = torch.Tensor.data_ptr
+    phases = [
+        ("sort", lambda: lib.mira_msm_bucket_sort(
+            ptr(sc), ptr(Z), n, c, nwin, ptr(digits), ptr(counts), ptr(offsets),
+            ptr(cursor), ptr(records), st)),
+        ("accumulate", lambda: lib.mira_msm_bucket_acc(
+            field, ptr(records), ptr(offsets), m, nseg, seg, ptr(X), ptr(Y),
+            ptr(buckets), ptr(heads), ptr(hkeys), st)),
+        ("reduce", lambda: lib.mira_msm_bucket_reduce(
+            field, nseg, c, nwin, ptr(offsets), ptr(buckets), ptr(heads),
+            ptr(hkeys), ptr(bits), ptr(tmp), ptr(ws), st)),
+        ("finish", lambda: lib.mira_msm_bucket_finish(
+            field, ptr(ws), nwin, c, ptr(out), st)),
+    ]
+    return phases, out
 
 
 def pippenger_chunks(n: int) -> int:
@@ -141,16 +186,14 @@ def msm_pippenger_cuda(scalars: torch.Tensor, points, curve: CurveParams,
         return _identity(curve, dev)
     nwin = pippenger_windows(curve.scalar_modulus.bit_length(), signed)
     nchunks = pippenger_chunks(n)
-    group = max(1, int(nchunks ** 0.5))  # two reduce passes of ~sqrt chains
     thr = _thresholds_on(nwin, PIPPENGER_WINDOW, dev) if signed else sc
-    acc = torch.empty(nwin * nchunks, _XYZZ_WORDS, dtype=torch.int32, device=dev)
-    partial = torch.empty(nwin * -(-nchunks // group), _XYZZ_WORDS,
-                          dtype=torch.int32, device=dev)
-    ws = torch.empty(nwin, _XYZZ_WORDS, dtype=torch.int32, device=dev)
+    acc = _xyzz(nwin * nchunks, dev)
+    partial = _xyzz(reduce_tmp_points(nwin, nchunks), dev)
+    ws = _xyzz(nwin, dev)
     out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
     err = _build.lib().mira_msm_pippenger(
         field, int(signed), sc.data_ptr(), X.data_ptr(), Y.data_ptr(),
-        Z.data_ptr(), n, nwin, nchunks, group, thr.data_ptr(), acc.data_ptr(),
+        Z.data_ptr(), n, nwin, nchunks, thr.data_ptr(), acc.data_ptr(),
         partial.data_ptr(), ws.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "msm_pippenger")
     if signed:
@@ -235,6 +278,19 @@ def msm_fixed(scalars: torch.Tensor, table: torch.Tensor, curve: CurveParams,
 def msm_fixed_cuda(scalars: torch.Tensor, table: torch.Tensor,
                    curve: CurveParams, window: int):
     global fixed_launches
+    phases, out = fixed_phases(scalars, table, curve, window)
+    if out is None:
+        return phases
+    for name, run in phases:
+        _build.check(run(), f"msm_fixed {name}")
+    fixed_launches += 1
+    return (out[0], out[1], out[2])
+
+
+def fixed_phases(scalars: torch.Tensor, table: torch.Tensor,
+                 curve: CurveParams, window: int):
+    """Kernel 3 as its three C calls: ([(phase, call)], out), to be made in
+    order ("recode", "accumulate", "finish"), as `bucket_phases`."""
     field = _build.field_id(curve.base_modulus)
     if window not in FIXED_WINDOWS:
         raise ValueError(f"msm_fixed_cuda: window {window} not in {FIXED_WINDOWS}")
@@ -242,29 +298,34 @@ def msm_fixed_cuda(scalars: torch.Tensor, table: torch.Tensor,
     dev = scalars.device
     ntab = 1 << (window - 1)
     if (scalars.dtype != torch.int32 or tuple(scalars.shape) != (n, NUM_WORDS)
-            or table.device != dev or table.dtype != torch.int32
+            or dev.type != "cuda" or table.device != dev
+            or table.dtype != torch.int32
             or tuple(table.shape) != (n, ntab, 2, NUM_WORDS)):
         raise ValueError("msm_fixed_cuda: expects (N, 8) int32 scalars and an "
                          f"(N, {ntab}, 2, 8) int32 table on one CUDA device")
     if n == 0:
-        return _identity(curve, dev)
+        return _identity(curve, dev), None
     scalars, table = scalars.contiguous(), table.contiguous()
     nwin = num_windows(curve.scalar_modulus.bit_length(), window)
-    nchunks = chunks_for(n)
-    thr = _thresholds_on(nwin, window, dev)
-    acc = torch.empty(nwin * nchunks, _XYZZ_WORDS, dtype=torch.int32, device=dev)
-    ngroups = -(-nchunks // REDUCE_GROUP)
-    partial = torch.empty(nwin * ngroups, _XYZZ_WORDS, dtype=torch.int32,
-                          device=dev)
-    ws = torch.empty(nwin, _XYZZ_WORDS, dtype=torch.int32, device=dev)
+    lib, st = _build.lib(), _build.stream_ptr(dev)
+    nblk = lib.mira_msm_fixed_blocks(field, window, n, nwin)
+    digits = torch.empty(nwin, n, dtype=torch.int16, device=dev)
+    nparts = nblk * FIXED_BLOCK  # one accumulator per thread
+    partial, ws = _xyzz(nwin * nparts, dev), _xyzz(nwin, dev)
+    tmp = _xyzz(reduce_tmp_points(nwin, nparts), dev)
     out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
-    err = _build.lib().mira_msm_fixed(
-        field, scalars.data_ptr(), table.data_ptr(), n, window, nwin, nchunks,
-        REDUCE_GROUP, thr.data_ptr(), acc.data_ptr(), partial.data_ptr(),
-        ws.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
-    _build.check(err, "msm_fixed")
-    fixed_launches += 1
-    return (out[0], out[1], out[2])
+    ptr = torch.Tensor.data_ptr
+    phases = [
+        ("recode", lambda: lib.mira_msm_fixed_recode(
+            ptr(scalars), n, window, nwin, ptr(digits), st)),
+        ("accumulate", lambda: lib.mira_msm_fixed_acc(
+            field, window, ptr(digits), ptr(table), n, nwin, nblk, ptr(partial),
+            st)),
+        ("finish", lambda: lib.mira_msm_fixed_finish(
+            field, window, ptr(partial), nwin, nblk, ptr(tmp), ptr(ws), ptr(out),
+            st)),
+    ]
+    return phases, out
 
 
 _thr_cache = {}

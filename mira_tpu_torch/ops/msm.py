@@ -153,6 +153,155 @@ def msm_plain(scalars: torch.Tensor, points, curve: CurveParams):
     return ops.canon(acc)
 
 
+# -- kernel 1's layout on the card, as plain index arithmetic ------------------
+# csrc/msm_bucket.cu recodes the scalars into signed c-bit digits, sorts the
+# (point, window) pairs with a nonzero digit by bucket (window, |digit|),
+# cuts the sorted records into equal segments of SEG (one thread each),
+# merges the runs that cross a segment boundary in levels of MERGE_SEG heads,
+# sums each window's buckets by the bits of their magnitude and joins the
+# per-(window, bit) sums with weights 2^(c*w + k).  The functions below are
+# that index arithmetic in plain Python/PyTorch, so that the CPU tests can
+# hold it to mira_tpu; `bucket_msm_model` runs it end to end on host points.
+
+BUCKET_MAX_WINDOW = 16  # int16 digits; 2^15 counters in a block's shared memory
+SEG = 32  # sorted records per accumulate thread, about (csrc/msm_bucket.cu)
+MERGE_FIRST = 2  # heads per merge thread at the first merge level
+MERGE_SEG = 8  # heads per merge thread at the later levels
+
+
+def bucket_window(n: int, num_bits: int = 254) -> int:
+    """Kernel 1's window c for N points: the c in 2..16 with the fewest
+    Montgomery products in its design, num_windows(num_bits, c) * (10 N +
+    14 (c - 1) 2^(c-2)): a mixed addition per point and window, and the
+    per-bit bucket sums, which add every bucket (c - 1) / 2 times on average
+    where a running sum adds it twice but in a chain of 2^c.  The smaller c
+    on a tie."""
+    return min(range(2, BUCKET_MAX_WINDOW + 1),
+               key=lambda c: (num_windows(num_bits, c)
+                              * (10 * n + 14 * (c - 1) * (1 << (c - 1)) // 2), c))
+
+
+def bucket_layout(scalars: torch.Tensor, live: torch.Tensor, c: int, nwin: int):
+    """The sort phase: (offsets, records) of the (N, 8) plain scalars at
+    window c, lanes where `live` is False (identity bases) dropped.
+    records (M, 2) int64: bucket id w * 2^(c-1) + |d| - 1 and point index
+    << 1 | (d < 0), ordered by bucket id (within a bucket by point index;
+    the kernel's order there is any); offsets (nwin * 2^(c-1) + 1) the
+    exclusive scan of the bucket counts, offsets[-1] == M."""
+    nb = 1 << (c - 1)
+    d = (signed_digits(scalars, nwin, c) * live.to(torch.int64)[:, None]).T
+    w, i = torch.nonzero(d, as_tuple=True)
+    dv = d[w, i]
+    bid = w * nb + dv.abs() - 1
+    order = torch.argsort(bid, stable=True)
+    records = torch.stack((bid[order], ((i << 1) | (dv < 0))[order]), 1)
+    counts = torch.bincount(bid, minlength=nwin * nb)
+    offsets = torch.cat((torch.zeros(1, dtype=torch.int64), torch.cumsum(counts, 0)))
+    return offsets, records
+
+
+def segment_runs(keys, seg: int):
+    """The equal-segment split of one level: `keys` (sorted bucket ids,
+    equal keys adjacent, -1 for an empty slot) cut into segments of `seg`.
+    Returns per segment its runs [(key, start, stop, head)]: `head` when the
+    run began in an earlier segment (it goes to the segment's head slot),
+    else the segment owns it (it goes to its bucket).  -1 keys form no run."""
+    keys = [int(k) for k in keys]
+    out = []
+    for p0 in range(0, len(keys), seg):
+        runs = []
+        for p in range(p0, min(len(keys), p0 + seg)):
+            k = keys[p]
+            if k < 0:
+                continue
+            if runs and runs[-1][0] == k and runs[-1][2] == p:
+                runs[-1][2] = p + 1
+            else:
+                head = p == p0 and p > 0 and keys[p - 1] == k
+                runs.append([k, p, p + 1, head])
+        out.append([tuple(r) for r in runs])
+    return out
+
+
+def merge_levels(nseg: int, first: int = MERGE_FIRST, rest: int = MERGE_SEG):
+    """Head slots per level of the merge: the accumulate phase's nseg, then
+    ceil(n / first) and ceil(n / rest) per later level until one is left
+    (the kernel's loop)."""
+    sizes = [nseg]
+    while sizes[-1] > 1:
+        sizes.append(-(-sizes[-1] // (first if len(sizes) == 1 else rest)))
+    return sizes
+
+
+def magnitudes_with_bit(k: int, c: int):
+    """The magnitudes 1..2^(c-1) with bit k set, in the order `bucket_bits`
+    (csrc/msm_bucket.cu) enumerates them."""
+    nb = 1 << (c - 1)
+    if k == c - 1:
+        return [nb]
+    return [((j >> k) << (k + 1)) | (1 << k) | (j & ((1 << k) - 1))
+            for j in range(nb >> 1)]
+
+
+def bucket_msm_model(scalars, points, curve: CurveParams, c: int,
+                     seg: int = SEG, merge_first: int = MERGE_FIRST,
+                     merge_seg: int = MERGE_SEG):
+    """Kernel 1's algorithm on host points (curves/host.py AffinePoint):
+    layout, equal segments with head slots and owned runs, the merge levels,
+    the per-(window, bit) sums and the weights 2^(c*w + k).  scalars: ints
+    below the group order; points: AffinePoints.  Returns an AffinePoint."""
+    from ..curves.host import AffinePoint
+
+    nwin = num_windows(curve.scalar_modulus.bit_length(), c)
+    nb = 1 << (c - 1)
+    ident = AffinePoint.identity(curve)
+    live = torch.tensor([not p.is_inf for p in points])
+    offsets, records = bucket_layout(
+        encode_scalars(scalars, curve.scalar_modulus), live, c, nwin)
+    buckets = {}
+    keys = records[:, 0].tolist()
+    nseg = -(-nwin * len(points) // seg)
+    heads, hkeys = [ident] * nseg, [-1] * nseg
+    for s, runs in enumerate(segment_runs(keys, seg)):
+        for k, p0, p1, head in runs:
+            acc = ident
+            for r in records[p0:p1, 1].tolist():
+                pt = points[r >> 1]
+                acc = acc.add(pt.neg() if r & 1 else pt)
+            if head:
+                heads[s], hkeys[s] = acc, k
+            else:
+                buckets[k] = acc
+    mseg = merge_first
+    while len(hkeys) > 1:
+        n_out = -(-len(hkeys) // mseg)
+        h2, k2 = [ident] * n_out, [-1] * n_out
+        for s, runs in enumerate(segment_runs(hkeys, mseg)):
+            for k, p0, p1, head in runs:
+                acc = ident
+                for p in range(p0, p1):
+                    acc = acc.add(heads[p])
+                if head:
+                    h2[s], k2[s] = acc, k
+                else:
+                    buckets[k] = buckets[k].add(acc)
+        heads, hkeys = h2, k2
+        mseg = merge_seg
+    terms = []  # C_{w,k}, the weight of term w * c + k is 2^(w * c + k)
+    for w in range(nwin):
+        for k in range(c):
+            C = ident
+            for v in magnitudes_with_bit(k, c):
+                idx = w * nb + v - 1
+                if int(offsets[idx + 1]) != int(offsets[idx]):
+                    C = C.add(buckets[idx])
+            terms.append(C)
+    total = ident
+    for C in reversed(terms):
+        total = total.double().add(C)
+    return total
+
+
 # -- fixed-base MSM ----------------------------------------------------------
 # A table holds, for each base P_i and v = 1..ntab (ntab = 2^(w-1)), the
 # affine multiple v*P_i as (x, y) Montgomery words: shape (N, ntab, 2, 8),

@@ -354,3 +354,114 @@ def test_ntt_kernels_batched(engine, log_n, cuda_device):  # noqa: F811
         assert torch.equal(got, ntt.ntt_plain(rows, p, inverse))
         for b in range(rows.shape[0]):
             assert torch.equal(got[b], ntt.ntt(rows[b], p, inverse, engine=engine))
+
+
+# -- kernels 1 and 3 on the layout's edge cases and at 2^17 --------------------
+LAYOUT_CASES = ["random", "all_equal", "all_zero", "below_2c", "r_minus_1",
+                "dup_opposite", "identity_lanes"]
+
+
+def _layout_case(curve, n, case, seed=0):
+    """tests/test_torch_msm_layout.py's edge cases: all-equal scalars (one
+    bucket per window holds every point), all zero, scalars below 2^c,
+    r - 1, duplicate and opposite bases with equal scalars, identity lanes."""
+    from mira_tpu_torch.ops.msm import bucket_window
+
+    rng = random.Random(seed * 1000 + n)
+    r = curve.scalar_modulus
+    base = [AffinePoint.random(curve, rng) for _ in range(5)]
+    pts = [base[i % 5] for i in range(n)]
+    nrng = np.random.default_rng(seed * 1000 + n)
+    sc = [int.from_bytes(nrng.bytes(32), "little") % r for _ in range(n)]
+    if case == "all_equal":
+        sc = [sc[0]] * n
+    elif case == "all_zero":
+        sc = [0] * n
+    elif case == "below_2c":
+        sc = [s % (1 << bucket_window(n)) for s in sc]
+    elif case == "r_minus_1":
+        sc = [r - 1] * n
+    elif case == "dup_opposite":
+        pts = [base[(i // 2) % 5].neg() if i % 4 == 1 else base[(i // 2) % 5]
+               for i in range(n)]
+        sc = [sc[i - i % 2] for i in range(n)]
+    elif case == "identity_lanes":
+        pts = [AffinePoint.identity(curve) if i % 3 == 0 else p
+               for i, p in enumerate(pts)]
+    return sc, pts
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+@pytest.mark.parametrize("n", [1, 2, 255])
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_msm_kernels_on_layout_cases(curve, n, case, cuda_device):  # noqa: F811
+    """The bucket kernel and the fixed-base kernel (both windows) against
+    their plain versions and the host MSM on the layout's edge cases."""
+    sc, pts = _layout_case(curve, n, case)
+    got, s, P = _run(msm, curve, sc, pts, cuda_device)
+    assert got == _run(msm_plain, curve, sc, pts, cuda_device)[0]
+    ref = msm_reference(s, P, curve)
+    assert got == ref
+    ops = jacobian_ops(curve.name)
+    for window in (5, 6):
+        table = cuda_msm.fixed_table_cuda(P, curve, window)
+        fixed = ops.decode_points(tuple(
+            c[None] for c in cuda_msm.msm_fixed_cuda(s, table, curve, window)))[0]
+        plain = ops.decode_points(tuple(
+            c[None] for c in msm_fixed_plain(s, table, curve, window)))[0]
+        assert fixed == plain == ref
+
+
+@pytest.mark.parametrize("c", [2, 3, 7, 13, 16])
+@pytest.mark.parametrize("case", ["random", "all_equal", "dup_opposite"])
+def test_bucket_kernel_every_window_width(c, case, cuda_device):  # noqa: F811
+    """The bucket kernel's phases at a window c other than its choice for the
+    width (sparse buckets at c = 16, 128 windows at c = 2) against the host
+    MSM."""
+    sc, pts = _layout_case(BN254_G1, 300, case, seed=c)
+    ops = jacobian_ops("bn254")
+    s = encode_scalars(sc, BN254_G1.scalar_modulus, cuda_device)
+    P = ops.encode_points(pts, cuda_device)
+    phases, out = cuda_msm.bucket_phases(s, P, BN254_G1, c)
+    for _, run in phases:
+        assert run() == 0
+    got = ops.decode_points(tuple(c_[None] for c_ in out))[0]
+    assert got == msm_reference(s, P, BN254_G1)
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+def test_msm_kernels_at_2_17(curve, cuda_device):  # noqa: F811
+    """Both kernels at the cross-term width 2^17 over key points against
+    their plain versions (the same function) and the host MSM, with the
+    first scalars 0, 1, r - 1 and two equal ones."""
+    from mira_tpu_torch.ops.commitment import CommitmentKey
+
+    n = 1 << 17
+    ck = CommitmentKey.setup(curve, 17, b"cuda-test", device=cuda_device)
+    P = ck._enc_slice(n)
+    rng = np.random.default_rng(17)
+    r = curve.scalar_modulus
+    sc = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(n)]
+    sc[:5] = [0, 1, r - 1, sc[9], sc[9]]
+    s = encode_scalars(sc, r, cuda_device)
+    ops = jacobian_ops(curve.name)
+
+    def dec(out):
+        return ops.decode_points(tuple(c[None] for c in out))[0]
+
+    ref = msm_reference(s, P, curve)
+    assert dec(msm(s, P, curve)) == dec(msm_plain(s, P, curve)) == ref
+    table = cuda_msm.fixed_table_cuda(P, curve, 6)
+    assert dec(cuda_msm.msm_fixed_cuda(s, table, curve, 6)) == dec(
+        msm_fixed_plain(s, table, curve, 6)) == ref
+
+
+def test_msm_kernel_launch_counters(cuda_device):  # noqa: F811
+    """One MSM is one count, whatever the number of its C calls."""
+    sc, pts = _adversarial(BN254_G1, 64, seed=6)
+    before = (cuda_msm.launches, cuda_msm.fixed_launches)
+    _, s, P = _run(msm, BN254_G1, sc, pts, cuda_device)
+    cuda_msm.msm_fixed_cuda(s, cuda_msm.fixed_table_cuda(P, BN254_G1, 5),
+                            BN254_G1, 5)
+    assert (cuda_msm.launches, cuda_msm.fixed_launches) == (before[0] + 1,
+                                                            before[1] + 1)
