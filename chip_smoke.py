@@ -30,11 +30,11 @@ Then three paths of the polynomial and hashing side, each at full size:
 - the batched Poseidon sponge (ops/poseidon_device.py): 2-to-1 hashes of
   2^16 and 2^20 random pairs against the plain version and the host sponge,
   and a Merkle tree of 2^20 leaves reduced level by level on the card;
-- ProtoGalaxy (nifs/protogalaxy.py) at k=17: two satisfying traces of the
+- ProtoGalaxy (nifs/protogalaxy.py) at k=17: satisfying traces of the
   k=17 path's primary step-folding circuit, made with its 2^21 key (three
-  per fold: ProtoGalaxy needs L + 1 a power of two once a gate has a constant
-  term), folded into a new accumulator and then again onto the result; each
-  fold counts
+  per fold: ProtoGalaxy needs L + 1 a power of two), folded into a new
+  accumulator and then again onto the result, its gates evaluated by the
+  fold evaluator kernel; each fold counts
   only if the verifier's (betas', e, U) equal the prover's and the folded
   trace satisfies F(betas', 0)(0) == e'.
 
@@ -51,7 +51,8 @@ generic-base MSM engines (kernels 4-7):
   makes the decider's commitments;
 - the mesh path: a second IVC of the k=17 path's public parameters runs two
   fold_step(mesh=...) on a mesh of one (NCCL, world 1), every commit a
-  sharded MSM through kernel 4 and the cross terms on the column evaluator;
+  sharded MSM through kernel 4 and the cross terms of the rank's row range
+  through the fold evaluator kernel;
   after each step both sides' accumulators must equal the single-device
   IVC's after the same step, and then verify(strict=True);
 - dryrun_multichip(1, "cuda") (parallel/dryrun.py): row-sharded fold and
@@ -61,11 +62,16 @@ generic-base MSM engines (kernels 4-7):
 The two MSMs of the main path, kernels 1 and 3, are also held to their
 plain versions and the host MSM on the edge cases of kernel 1's sorted
 layout (all-equal, zero and small scalars, r - 1, duplicate and opposite
-bases, identity lanes) at N = 1, 2, 255, and timed per phase (their C calls:
-sort or recode, accumulate, reduce, finish); kernel 1 also at 2^21.  Where
-a copy of the previous sources (commit 1a88dc7) lies at PREV_CSRC
-(git-ignored), their designs of kernels 1 and 3 are built beside this
-tree's and timed in turns with them.
+bases, identity lanes) at N = 1, 2, 255 (those plain versions run on the
+CPU in worker processes beside the other checks), and timed per phase (their C calls:
+sort or recode, accumulate, reduce, finish); kernel 1 also at 2^21.  The
+table build (kernel 3b) is held to its plain version at N = 1, 2, 255 and
+at a width of three blocks and five lanes whose blocks hold no, one and
+only identity lanes; the fold evaluator (kernel 2) on every row and on row
+ranges (ends off the block, one row, the last rows).  Where a copy of the
+previous sources (commit 2f5ff22) lies at PREV_CSRC (git-ignored), their
+designs of kernels 3b and 2 are built beside this tree's and timed in turns
+with them.
 
 Kernel launches are counted over each path.  The keys of both paths come
 from one background thread started right after the build (the native
@@ -85,6 +91,7 @@ outside a checkout of the repository.
 """
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -210,15 +217,12 @@ def msm_fixed_bound(n: int, window: int, curve) -> dict:
     """What a fixed-base signed-digit MSM needs: one table lookup (64 B of
     the 2^(w-1) entries per lane, each counted once) and one mixed addition
     per point and window.  The kernel's per-block partial sums are its own
-    cost and are not counted.  `generic_bound_ms` beside it: the least a
-    generic-base MSM of the same width needs (`msm_bucket_bound`), the
-    question whether the table still pays on this card."""
+    cost and are not counted."""
     from mira_tpu_torch.ops.msm import num_windows
 
     nwin = num_windows(curve.scalar_modulus.bit_length(), window)
     products = nwin * n * MADD_PRODUCTS
-    return {**bound(n * 32 + n * (1 << (window - 1)) * 64 + 96, products),
-            "generic_bound_ms": msm_bucket_bound(n, curve)["bound_ms"]}
+    return bound(n * 32 + n * (1 << (window - 1)) * 64 + 96, products)
 
 
 def timed_phases(torch, phases, reps: int) -> dict:
@@ -246,86 +250,101 @@ def timed_phases(torch, phases, reps: int) -> dict:
             for i, (name, _) in enumerate(phases)}
 
 
-# The previous designs of kernels 1 and 3 (commit 1a88dc7), for a paired
+# The previous designs of kernels 3b and 2 (commit 2f5ff22), for a paired
 # timing where a copy of their sources lies in the repository's ignored
-# build directory: unpack `git archive 1a88dc7 mira_tpu_torch/csrc` into
+# build directory: unpack `git archive 2f5ff22 mira_tpu_torch/csrc` into
 # mira_tpu_torch/build/prev.
 PREV_CSRC = os.path.join("mira_tpu_torch", "build", "prev", "mira_tpu_torch", "csrc")
 
 
 def prev_kernels(root: str):
-    """(bucket(s, P, curve), fixed(s, table, curve, window)) of the previous
-    sources under PREV_CSRC, built by nvcc into their own library, or None
-    when that copy is absent.  The arguments as their wrappers made them:
-    5-bit windows, ~64 points per thread, reduce groups of 32."""
+    """{"fixed_table": fn(points, curve, window), "fold_eval": fn(lf, ops_t,
+    n_regs, stat, w1, w2, ch, jm, consts)} of the previous sources under
+    PREV_CSRC, built by nvcc into their own library, or None when that copy
+    is absent.  Their C interfaces as they were: one thread a lane with its
+    own inversion, and a register file in device memory over whole
+    columns."""
     import ctypes
 
     import torch
 
     from mira_tpu_torch import _build
-    from mira_tpu_torch.ops.cuda_msm import _thresholds_on, _xyzz
-    from mira_tpu_torch.ops.msm import num_windows
+    from mira_tpu_torch.fields.limbs import NUM_WORDS
 
     src = os.path.join(root, PREV_CSRC)
     if not os.path.isdir(src):
         return None
-    so = os.path.join(_build.BUILD, "libprev_msm.so")
+    so = os.path.join(_build.BUILD, "libprev_kernels.so")
     if not os.path.exists(so):
         os.makedirs(_build.BUILD, exist_ok=True)
-        report = _build._build(so, [os.path.join(src, f) for f in ("msm_bucket.cu",
-                                                                   "msm_fixed.cu")])
+        report = _build._build(so, [os.path.join(src, f) for f in ("fixed_table.cu",
+                                                                   "fold_eval.cu")])
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  previous ptxas: {line.strip()}")
     lib = ctypes.CDLL(so)
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.mira_msm_bucket.argtypes = [I_, P_, P_, P_, P_, I_, I_, I_, I_] + [P_] * 7
-    lib.mira_msm_fixed.argtypes = [I_, P_, P_, I_, I_, I_, I_, I_] + [P_] * 6
-    lib.mira_msm_bucket.restype = lib.mira_msm_fixed.restype = I_
+    lib.mira_fixed_table.argtypes = [I_, P_, P_, P_, I_, I_, P_, P_]
+    lib.mira_fold_eval.argtypes = [I_, P_, I_, P_, P_, P_, P_, I_, P_, I_, P_, I_,
+                                   P_, P_, P_]
+    lib.mira_fixed_table.restype = lib.mira_fold_eval.restype = I_
 
-    def chunks(n):
-        return max(1, min(1024, (n + 63) // 64))
+    def fixed_table(points, curve, window):
+        X, Y, Z = points
+        n, dev = X.shape[0], X.device
+        tab = torch.empty(n, 1 << (window - 1), 2, NUM_WORDS, dtype=torch.int32,
+                          device=dev)
+        _build.check(lib.mira_fixed_table(
+            _build.field_id(curve.base_modulus), X.data_ptr(), Y.data_ptr(),
+            Z.data_ptr(), n, window, tab.data_ptr(), _build.stream_ptr(dev)),
+            "previous fixed_table")
+        return tab
 
-    def bucket(s, P, curve):
-        n, dev = s.shape[0], s.device
-        nwin, nch = num_windows(curve.scalar_modulus.bit_length()), chunks(n)
-        bufs = [_xyzz(nwin * nch * 16, dev), _xyzz(nwin * -(-nch // 32) * 16, dev),
-                _xyzz(nwin * 16, dev), _xyzz(nwin, dev)]
-        out = torch.empty(3, 8, dtype=torch.int32, device=dev)
-        _build.check(lib.mira_msm_bucket(
-            _build.field_id(curve.base_modulus), *(t.data_ptr() for t in (s, *P)),
-            n, nwin, nch, 32, _thresholds_on(nwin, 5, dev).data_ptr(),
-            *(b.data_ptr() for b in bufs), out.data_ptr(),
-            _build.stream_ptr(dev)), "previous msm_bucket")
-        return (out[0], out[1], out[2])
+    def fold_eval(lf, ops_t, n_regs, stat, w1, w2, ch, jm, consts):
+        n_j, nrow, dev = jm.shape[0], stat.shape[1], stat.device
+        regs = torch.empty(n_regs, nrow, NUM_WORDS, dtype=torch.int32, device=dev)
+        out = torch.empty(n_j, nrow, NUM_WORDS, dtype=torch.int32, device=dev)
+        _build.check(lib.mira_fold_eval(
+            _build.field_id(lf.modulus), ops_t.data_ptr(), ops_t.shape[0],
+            stat.data_ptr(), w1.data_ptr(), w2.data_ptr(), ch.data_ptr(),
+            ch.shape[1], jm.data_ptr(), n_j, consts.data_ptr(), nrow,
+            regs.data_ptr(), out.data_ptr(), _build.stream_ptr(dev)),
+            "previous fold_eval")
+        return out
 
-    def fixed(s, tab, curve, window):
-        n, dev = s.shape[0], s.device
-        nwin, nch = num_windows(curve.scalar_modulus.bit_length(), window), chunks(n)
-        bufs = [_xyzz(nwin * nch, dev), _xyzz(nwin * -(-nch // 32), dev),
-                _xyzz(nwin, dev)]
-        out = torch.empty(3, 8, dtype=torch.int32, device=dev)
-        _build.check(lib.mira_msm_fixed(
-            _build.field_id(curve.base_modulus), s.data_ptr(), tab.data_ptr(), n,
-            window, nwin, nch, 32, _thresholds_on(nwin, window, dev).data_ptr(),
-            *(b.data_ptr() for b in bufs), out.data_ptr(),
-            _build.stream_ptr(dev)), "previous msm_fixed")
-        return (out[0], out[1], out[2])
-
-    return bucket, fixed
+    return {"fixed_table": fixed_table, "fold_eval": fold_eval}
 
 
-def fixed_table_bound(n: int, window: int, curve) -> dict:
-    """What the table of affine multiples needs per lane: 2^(w-1) - 1
-    Jacobian additions, the prefix products of their Z's, six products per
-    entry on the way back to affine, and three for the lane's share of one
-    inversion batched across all lanes (one Fermat inversion in all: a square
+def fixed_table_products(n: int, window: int, curve) -> dict:
+    """Montgomery products the table of affine multiples needs, by the two
+    routes to it: {"jacobian": the Jacobian chain (an affine doubling, 6;
+    2^(w-1) - 2 mixed additions, 11; the walk back to affine, 5 an entry
+    but 4 for 2P; 3 a lane for its share of one inversion batched across
+    all lanes), "affine": the affine chain (an affine doubling, 4, and
+    2^(w-1) - 2 affine additions, 3, each with 3 for its share of one
+    batched inversion per multiple)}, each with its inversions (a square
     per bit of p - 2 and a product per set bit)."""
     ntab = 1 << (window - 1)
     e = curve.base_modulus - 2
     inv = e.bit_length() + bin(e).count("1")
-    products = n * ((ntab - 1) * JAC_ADD_PRODUCTS + (ntab - 1) + 3 + 6 * ntab) + inv
-    return bound(n * 3 * 32 + n * ntab * 64, products)
+    return {"jacobian": n * (6 + 11 * (ntab - 2) + 5 * (ntab - 1) - 1 + 3) + inv,
+            "affine": n * (7 + 6 * (ntab - 2)) + (ntab - 1) * inv}
+
+
+def fixed_table_route_bounds(n: int, window: int, curve) -> dict:
+    """The bound of each of `fixed_table_products`' two routes, in ms: the
+    table's inputs and output once, and that route's products."""
+    nbytes = n * 3 * 32 + n * (1 << (window - 1)) * 64
+    return {k: bound(nbytes, v) for k, v in
+            fixed_table_products(n, window, curve).items()}
+
+
+def fixed_table_bound(n: int, window: int, curve) -> dict:
+    """The table's bound: the lesser of `fixed_table_route_bounds`' two (the
+    affine chain, for w = 5 and 6), its route named in `bound_route`."""
+    routes = fixed_table_route_bounds(n, window, curve)
+    route = min(routes, key=lambda k: routes[k]["bound_ms"])
+    return {**routes[route], "bound_route": route}
 
 
 def fold_eval_bound(ops, n_static: int, n_advice: int, nrow: int, n_j: int) -> dict:
@@ -499,6 +518,7 @@ def check_msm_small(torch, dev, rng):
 
 LAYOUT_CASES = ("all_equal", "all_zero", "below_2c", "r_minus_1",
                 "dup_opposite", "identity_lanes")
+LAYOUT_WORKERS = 3  # CPU processes computing the layout cases' plain versions
 
 
 def layout_case(curve, n, case, rng):
@@ -534,42 +554,98 @@ def layout_case(curve, n, case, rng):
     return sc, pts
 
 
-def check_msm_layout_cases(torch, dev, rng):
-    """Kernels 1 and 3 (both windows) against their plain versions and the
-    host MSM at N = 1, 2 and 255 on both curves, on the layout's edge cases.
-    Returns the largest |kernel - plain| over them (0)."""
+def layout_plain(curve_name: str, n: int, seeds: dict) -> dict:
+    """The plain side of `check_msm_layout_cases` for one curve and width,
+    on the CPU, in a worker process: per case (its inputs from
+    `layout_case` with the case's seed) the host MSM, the bucket MSM's plain
+    version, and at each window the plain table (words) and the fixed-base
+    MSM's plain version over it."""
+    import numpy as np
+    import torch
+
     from mira_tpu_torch.convert import msm_reference
     from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
     from mira_tpu_torch.curves.torch_curve import jacobian_ops
+    from mira_tpu_torch.ops.cuda_msm import FIXED_WINDOWS
+    from mira_tpu_torch.ops.msm import (
+        encode_scalars,
+        msm_fixed_plain,
+        msm_plain,
+        precompute_fixed_table_plain,
+    )
+
+    torch.set_num_threads(1)
+    curve = {"bn254": BN254_G1, "grumpkin": GRUMPKIN}[curve_name]
+    ops = jacobian_ops(curve_name)
+    out = {}
+    for case, seed in seeds.items():
+        sc, pts = layout_case(curve, n, case, np.random.default_rng(seed))
+        s = encode_scalars(sc, curve.scalar_modulus)
+        P = ops.encode_points(pts)
+        res = {"host": point_ints(msm_reference(s, P, curve)),
+               "bucket": point_ints(decode_one(curve, msm_plain(s, P, curve)))}
+        for window in FIXED_WINDOWS:
+            tab = precompute_fixed_table_plain(P, curve, window)
+            res[window] = (tab.numpy(), point_ints(decode_one(
+                curve, msm_fixed_plain(s, tab, curve, window))))
+        out[case] = res
+    return out
+
+
+def submit_layout_plain(pool, rng) -> dict:
+    """`layout_plain` for each curve and width N = 1, 2, 255 on `pool`:
+    {(curve name, n): (seeds by case, async result)}."""
+    jobs = {}
+    for curve_name in ("bn254", "grumpkin"):
+        for n in (255, 2, 1):
+            seeds = {case: int(rng.integers(1 << 30)) for case in LAYOUT_CASES}
+            jobs[(curve_name, n)] = (seeds, pool.apply_async(
+                layout_plain, (curve_name, n, seeds)))
+    return jobs
+
+
+def check_msm_layout_cases(torch, dev, jobs):
+    """Kernels 1, 3 (both windows) and 3b against their plain versions and
+    the host MSM at N = 1, 2 and 255 on both curves, on the layout's edge
+    cases.  The plain versions, launch-bound at these widths, run on the
+    CPU in worker processes (`submit_layout_plain`) while the other checks
+    run here, on the same inputs.  Returns the largest |kernel - plain|
+    over them (0)."""
+    import numpy as np
+
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
+    from mira_tpu_torch.curves.torch_curve import jacobian_ops
     from mira_tpu_torch.ops import cuda_msm
-    from mira_tpu_torch.ops.msm import encode_scalars, msm_fixed_plain, msm_plain
+    from mira_tpu_torch.ops.msm import encode_scalars
 
     err = 0
-    for curve in (BN254_G1, GRUMPKIN):
-        ops = jacobian_ops(curve.name)
-        for n in (1, 2, 255):
-            for case in LAYOUT_CASES:
-                sc, pts = layout_case(curve, n, case, rng)
-                s = encode_scalars(sc, curve.scalar_modulus, dev)
-                P = ops.encode_points(pts, dev)
-                ref = point_ints(msm_reference(s, P, curve))
-                got = point_ints(decode_one(curve, cuda_msm.msm_cuda(s, P, curve)))
-                plain = point_ints(decode_one(curve, msm_plain(s, P, curve)))
-                err = max(err, max_abs_err(got, plain))
-                if not got == plain == ref:
-                    raise AssertionError(f"msm_bucket {case} n={n} on {curve.name}")
-                for window in cuda_msm.FIXED_WINDOWS:
-                    tab = cuda_msm.fixed_table_cuda(P, curve, window)
-                    got = point_ints(decode_one(
-                        curve, cuda_msm.msm_fixed_cuda(s, tab, curve, window)))
-                    plain = point_ints(decode_one(
-                        curve, msm_fixed_plain(s, tab, curve, window)))
-                    err = max(err, max_abs_err(got, plain))
-                    if not got == plain == ref:
-                        raise AssertionError(f"msm_fixed {case} n={n} w={window} "
-                                             f"on {curve.name}")
-    log(f"msm_bucket, msm_fixed (w = 5, 6) at n = 1, 2, 255 on {list(LAYOUT_CASES)}: "
-        "kernel == plain == host on both curves (exact)")
+    for (curve_name, n), (seeds, job) in jobs.items():
+        curve = {"bn254": BN254_G1, "grumpkin": GRUMPKIN}[curve_name]
+        ops = jacobian_ops(curve_name)
+        plain = job.get()
+        for case, seed in seeds.items():
+            want = plain[case]
+            sc, pts = layout_case(curve, n, case, np.random.default_rng(seed))
+            s = encode_scalars(sc, curve.scalar_modulus, dev)
+            P = ops.encode_points(pts, dev)
+            got = point_ints(decode_one(curve, cuda_msm.msm_cuda(s, P, curve)))
+            err = max(err, max_abs_err(got, want["bucket"]))
+            if not got == want["bucket"] == want["host"]:
+                raise AssertionError(f"msm_bucket {case} n={n} on {curve.name}")
+            for window in cuda_msm.FIXED_WINDOWS:
+                tab = cuda_msm.fixed_table_cuda(P, curve, window)
+                plain_tab, plain_msm = want[window]
+                got = point_ints(decode_one(
+                    curve, cuda_msm.msm_fixed_cuda(s, tab, curve, window)))
+                e = max(words_err(tab.cpu(), torch.from_numpy(plain_tab)),
+                        max_abs_err(got, plain_msm))
+                err = max(err, e)
+                if e or not got == want["host"]:
+                    raise AssertionError(f"fixed_table or msm_fixed {case} n={n} "
+                                         f"w={window} on {curve.name}")
+    log(f"msm_bucket, fixed_table, msm_fixed (w = 5, 6) at n = 1, 2, 255 on "
+        f"{list(LAYOUT_CASES)}: kernel == plain (on the CPU) == host on both "
+        "curves (exact)")
     return err
 
 
@@ -633,6 +709,42 @@ def check_fixed_small(torch, dev, rng):
     log("fixed_table, msm_fixed at n = 256, 1000, 4096 (duplicates, "
         "zero scalar, identity lane, r - 1, 2^250 - 1, 2^256 - 1): kernel == "
         "plain == host on both curves (exact)")
+
+
+def check_table_edges(torch, dev, rng):
+    """Kernel 3b against its plain version, exactly, on both curves at w = 5
+    and 6, at 3 blocks and 5 lanes of TABLE_BLOCK (a width that is not a
+    multiple of the block) whose blocks hold no, one and only identity
+    lanes; `check_msm_layout_cases` holds it at N = 1, 2 and 255.  Returns
+    the largest |kernel - plain| (0)."""
+    import random
+
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
+    from mira_tpu_torch.curves.torch_curve import AffinePoint, jacobian_ops
+    from mira_tpu_torch.ops import cuda_msm
+    from mira_tpu_torch.ops.msm import TABLE_BLOCK, precompute_fixed_table_plain
+
+    blk = TABLE_BLOCK
+    err = 0
+    for curve in (BN254_G1, GRUMPKIN):
+        ops = jacobian_ops(curve.name)
+        r = random.Random(int(rng.integers(1 << 30)))
+        base = [AffinePoint.random(curve, r) for _ in range(9)]
+        ident = AffinePoint.identity(curve)
+        wide = [base[i % 9] for i in range(3 * blk + 5)]
+        wide[blk + 17] = ident
+        wide[2 * blk : 3 * blk] = [ident] * blk
+        P = ops.encode_points(wide, dev)
+        for window in cuda_msm.FIXED_WINDOWS:
+            tab = cuda_msm.fixed_table_cuda(P, curve, window)
+            e = words_err(tab, precompute_fixed_table_plain(P, curve, window))
+            err = max(err, e)
+            if e:
+                raise AssertionError(f"fixed_table n={len(wide)} w={window} on "
+                                     f"{curve.name}: kernel != plain")
+    log(f"fixed_table at n = {3 * blk + 5} (blocks of {blk} with no, one and "
+        "only identity lanes), w = 5, 6: kernel == plain on both curves (exact)")
+    return err
 
 
 def start_keygen(specs):
@@ -720,8 +832,8 @@ def fixed_timings(torch, dev, rng, curve, points, window, reps=5, prev=None):
     """Kernel and plain times of the table build and of the fixed-base MSM
     over `points` at `window`, random canonical scalars, and the MSM's
     per-phase times; both kernels must equal their plain versions.  With
-    `prev` (`prev_kernels`), the previous design of the MSM is timed in
-    turns with this one and must agree with it."""
+    `prev` (`prev_kernels`), the previous design of the table build is
+    timed in turns with this one and must agree with it."""
     from mira_tpu_torch.ops import cuda_msm
     from mira_tpu_torch.ops.msm import msm_fixed_plain, precompute_fixed_table_plain
 
@@ -731,10 +843,18 @@ def fixed_timings(torch, dev, rng, curve, points, window, reps=5, prev=None):
         lambda: precompute_fixed_table_plain(points, curve, window))
     tab = cuda_msm.fixed_table_cuda(points, curve, window)
     # both tables hold canonical words, so equal words are equal values
-    tab_err = int((tab.long() - plain_tab.long()).abs().max())
+    tab_err = words_err(tab, plain_tab)
     if tab_err:
         raise AssertionError(f"fixed_table n={n} w={window}: kernel != plain")
     del plain_tab
+    tab_prev, extra = {}, ""
+    if prev is not None:
+        if not torch.equal(prev["fixed_table"](points, curve, window), tab):
+            raise AssertionError(f"fixed_table n={n} w={window}: != the previous kernel")
+        new_ms, old_ms = paired(lambda: cuda_msm.fixed_table_cuda(points, curve, window),
+                                lambda: prev["fixed_table"](points, curve, window), reps)
+        tab_prev = {"paired_ms": new_ms, "prev_ms": old_ms}
+        extra = f", paired with the previous design's {new_ms:.3f} vs {old_ms:.3f} ms"
     s = _random_plain(rng, n, dev)
     ms = timed_cuda(lambda: cuda_msm.msm_fixed_cuda(s, tab, curve, window), reps)
     phases = timed_phases(torch, cuda_msm.fixed_phases(s, tab, curve, window)[0], reps)
@@ -743,23 +863,18 @@ def fixed_timings(torch, dev, rng, curve, points, window, reps=5, prev=None):
     err = max_abs_err(got, point_ints(decode_one(curve, want)))
     if err:
         raise AssertionError(f"msm_fixed n={n} w={window}: kernel != plain")
-    extra = ""
-    prev_at = {}
-    if prev is not None:
-        if point_ints(decode_one(curve, prev[1](s, tab, curve, window))) != got:
-            raise AssertionError(f"msm_fixed n={n} w={window}: != the previous kernel")
-        new_ms, old_ms = paired(lambda: cuda_msm.msm_fixed_cuda(s, tab, curve, window),
-                                lambda: prev[1](s, tab, curve, window), reps)
-        prev_at = {"paired_ms": new_ms, "prev_ms": old_ms}
-        extra = f", paired with the previous design's {new_ms:.3f} vs {old_ms:.3f} ms"
+    routes = {k: round(v["bound_ms"], 3)
+              for k, v in fixed_table_route_bounds(n, window, curve).items()}
     log(f"n={n} w={window} {curve.name}: fixed_table {tab_ms:.3f} ms (plain "
-        f"{tab_plain_ms:.3f} ms), msm_fixed {ms:.3f} ms (plain {plain_ms:.3f} ms; "
-        f"phases {json.dumps({k: round(v, 3) for k, v in phases.items()})}{extra})")
+        f"{tab_plain_ms:.3f} ms{extra}; bound by route {json.dumps(routes)} ms), "
+        f"msm_fixed {ms:.3f} ms (plain {plain_ms:.3f} ms; phases "
+        f"{json.dumps({k: round(v, 3) for k, v in phases.items()})}; a generic-base "
+        f"MSM's bound {msm_bucket_bound(n, curve)['bound_ms']:.3f} ms)")
     return ({"n": n, "window": window, "ms": ms, "plain_ms": plain_ms,
-             "phases_ms": phases, **prev_at,
+             "phases_ms": phases,
              "max_abs_err": err, **msm_fixed_bound(n, window, curve)},
             {"n": n, "window": window, "ms": tab_ms, "plain_ms": tab_plain_ms,
-             "max_abs_err": tab_err, **fixed_table_bound(n, window, curve)})
+             **tab_prev, "max_abs_err": tab_err, **fixed_table_bound(n, window, curve)})
 
 
 def run_snarkstar(torch, dev):
@@ -819,12 +934,16 @@ def check_msm_large(torch, dev, rng, ck):
 
 
 def check_fold_eval(torch, dev, rng, S):
-    """Kernel vs plain on the k=17 step-folding circuit's homogeneous
-    expression, seeded random witness, all fold points."""
+    """Kernel vs plain on a structure's homogeneous expression, seeded
+    random witness, all fold points: on every row, and on row ranges whose
+    ends are not multiples of the block, of one row, and ending on the last
+    row (where rotations wrap).  Returns the state the timings reuse."""
+    from mira_tpu_torch import _build
     from mira_tpu_torch.polynomial import fold_evaluator as fe
 
     lf = S.lf
     p = S.modulus
+    nrow = 1 << S.k
     ev = S.fold_evaluator(dev)
     Ws1, Ws2 = ([lf.from_plain(_random_plain(rng, sz, dev)) for sz in S.round_sizes]
                 for _ in range(2))
@@ -838,14 +957,23 @@ def check_fold_eval(torch, dev, rng, S):
     w2 = ev._stack_advice(Ws2)
     jm = lf.encode(js, dev)
     _, ch = _challenge_rows(lf, js, ch1, ch2, scalars, dev)
-    got = fe.fold_eval_cuda(lf, ops_t, n_regs, ev.static_stack, w1, w2, ch, jm, consts)
-    torch.cuda.synchronize()
-    want = fe.fold_eval_plain(lf, ops, ev.static_stack, w1, w2, ch, jm, consts)
-    if not torch.equal(got, want):
-        raise AssertionError("fold_eval on the k=17 SFC: kernel != plain on "
-                             f"{(got != want).any(-1).sum()} entries")
-    log(f"fold_eval k={S.k} SFC ({len(ops)} ops, {n_regs} registers, "
-        f"{len(js)} fold points): kernel == plain (exact)")
+    ranges = [None, (nrow // 8 + 3, nrow // 2 + 1), (nrow // 3, nrow // 3 + 1),
+              (nrow - nrow // 5 - 1, nrow)]
+    for rows in ranges:
+        got = fe.fold_eval_cuda(lf, ops_t, n_regs, ev.static_stack, w1, w2, ch, jm,
+                                consts, rows)
+        torch.cuda.synchronize()
+        want = fe.fold_eval_plain(lf, ops, ev.static_stack, w1, w2, ch, jm, consts,
+                                  rows)
+        if not torch.equal(got, want):
+            raise AssertionError(f"fold_eval on the k={S.k} SFC, rows {rows}: "
+                                 f"kernel != plain on {(got != want).any(-1).sum()} "
+                                 "entries")
+    block = _build.lib().mira_fold_eval_block(n_regs, len(ops))
+    log(f"fold_eval k={S.k} SFC over {S.curve.name} ({len(ops)} ops, {n_regs} "
+        f"registers, {block} rows a block, "
+        f"{len(js)} fold points): kernel == plain (exact) on all rows and on rows "
+        f"{ranges[1:]}")
     return (ev, ops, ops_t, n_regs, consts, w1, w2, ch, jm, js)
 
 
@@ -1447,9 +1575,9 @@ def _mesh_steps(torch, mesh, pp, sc1, sc2, single, profile_dir):
     peak = torch.cuda.max_memory_allocated()
     log("host span tree of the mesh fold steps:")
     log(tracing.report(min_runtime=0.01))
-    require_launched(counts, ("msm_pippenger",), "the mesh path")
-    if counts["msm_fixed"] or counts["fold_eval"] or counts["fixed_table"]:
-        raise AssertionError(f"the mesh steps ran a single-device kernel: {counts}")
+    require_launched(counts, ("msm_pippenger", "fold_eval"), "the mesh path")
+    if counts["msm_fixed"] or counts["fixed_table"]:
+        raise AssertionError(f"the mesh steps built or used a multiples table: {counts}")
     if profile_dir:
         profile_fold_step(torch, ivc, profile_dir, mesh)
     t0 = time.perf_counter()
@@ -1543,7 +1671,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     prev = prev_build.result()
-    log(f"previous MSM kernels for the paired timing: "
+    log(f"previous kernels 3b and 2 for the paired timing: "
         f"{'built from ' + PREV_CSRC if prev else 'no copy at ' + PREV_CSRC + ', not timed'}")
     phase("build", t0)
     # the keys after the build, whose nvcc processes want every core: the
@@ -1553,13 +1681,20 @@ def main() -> int:
     keygen = start_keygen(key_specs)
 
     t0 = time.perf_counter()
-    check_field_kernels(torch, dev, rng)
-    check_msm_small(torch, dev, rng)
-    layout_err = check_msm_layout_cases(torch, dev, rng)
-    check_fixed_small(torch, dev, rng)
-    check_ntt_small(torch, dev, rng)
-    check_poseidon_small(torch, dev, rng)
-    check_msm_engines_small(torch, dev, rng)
+    small = {}
+    # the layout cases' plain versions in CPU worker processes, stopped on
+    # leaving the block whatever happens
+    with multiprocessing.get_context("spawn").Pool(LAYOUT_WORKERS) as pool:
+        jobs = submit_layout_plain(pool, rng)
+        for check in (check_field_kernels, check_msm_small, check_fixed_small,
+                      check_table_edges, check_ntt_small, check_poseidon_small,
+                      check_msm_engines_small, check_msm_layout_cases):
+            t1 = time.perf_counter()
+            small[check.__name__] = check(
+                torch, dev, jobs if check is check_msm_layout_cases else rng)
+            log(f"  {check.__name__}: {time.perf_counter() - t1:.1f} s")
+    layout_err = small["check_msm_layout_cases"]
+    table_err = small["check_table_edges"]
     phase("kernel_checks_small", t0)
 
     # -- the NTT and Poseidon paths need no key: they run while the keys are made
@@ -1599,6 +1734,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     fe_state = check_fold_eval(torch, dev, rng, pp.primary.S)
+    check_fold_eval(torch, dev, rng, pp.secondary.S)
     phase("fold_eval_check", t0)
 
     t0 = time.perf_counter()
@@ -1667,18 +1803,8 @@ def main() -> int:
         a["window"] = bucket_window(a["n"])
         a["phases_ms"] = timed_phases(
             torch, cuda_msm.bucket_phases(sa, Pa, BN254_G1)[0], 5)
-        if prev is not None:
-            if (point_ints(decode_one(BN254_G1, prev[0](sa, Pa, BN254_G1)))
-                    != point_ints(decode_one(BN254_G1,
-                                             cuda_msm.msm_cuda(sa, Pa, BN254_G1)))):
-                raise AssertionError(f"bucket MSM n={a['n']}: != the previous kernel")
-            a["paired_ms"], a["prev_ms"] = paired(
-                lambda: cuda_msm.msm_cuda(sa, Pa, BN254_G1),
-                lambda: prev[0](sa, Pa, BN254_G1), 5)
         log(f"msm_bucket n={a['n']} c={a['window']}: {a['ms']:.3f} ms, phases "
-            f"{json.dumps({k: round(v, 3) for k, v in a['phases_ms'].items()})}"
-            + (f", paired with the previous design's {a['paired_ms']:.3f} vs "
-               f"{a['prev_ms']:.3f} ms" if prev is not None else ""))
+            f"{json.dumps({k: round(v, 3) for k, v in a['phases_ms'].items()})}")
     kernels.append({
         "name": "msm_bucket", "route": "cuda",
         "source": "mira_tpu_torch/csrc/msm_bucket.cu",
@@ -1705,16 +1831,38 @@ def main() -> int:
     err = max_abs_err(ev.lf.decode(run_kernel()), ev.lf.decode(want))
     if err:
         raise AssertionError("fold_eval: kernel != plain at the interior points")
+    n_pts = len(js) - 2
+    # the point loop rereads a row's columns once per point after the first:
+    # their bytes at the device-memory rate, against one point's time
+    ms_one = timed_cuda(lambda: fe.fold_eval_cuda(
+        ev.lf, ops_t, n_regs, ev.static_stack, w1, w2, ch[1:2], jm[1:2], consts), 5)
+    reread = (n_pts - 1) * (ev.static_stack.shape[0] + 2 * w1.shape[0]) * 32 << K
+    fe_prev, extra = {}, ""
+    if prev is not None:
+        old = prev["fold_eval"](ev.lf, ops_t, n_regs, ev.static_stack, w1, w2,
+                                ch[jsel], jm[jsel], consts)
+        if not torch.equal(old, run_kernel()):
+            raise AssertionError("fold_eval: != the previous kernel")
+        new_ms, old_ms = paired(run_kernel, lambda: prev["fold_eval"](
+            ev.lf, ops_t, n_regs, ev.static_stack, w1, w2, ch[jsel], jm[jsel],
+            consts), 5)
+        fe_prev = {"paired_ms": new_ms, "prev_ms": old_ms}
+        extra = f"; paired with the previous design's {new_ms:.3f} vs {old_ms:.3f} ms"
+    log(f"fold_eval 2^{K} rows x {n_pts} points: {ms_k:.3f} ms (one point "
+        f"{ms_one:.3f} ms; the rereads {reread / 1e9:.3f} GB, "
+        f"{reread / MEM_BYTES_PER_S * 1e3:.3f} ms at the device-memory rate; plain "
+        f"{ms_p:.1f} ms{extra})")
     kernels.append({
         "name": "fold_eval", "route": "cuda",
         "source": "mira_tpu_torch/csrc/fold_eval.cu",
         "replaces": "mira_tpu/polynomial/pallas_evaluator.py:323",
         "launches": counts["fold_eval"], "max_abs_err": err,
-        "ms": ms_k, "plain_ms": ms_p,
+        "ms": ms_k, "plain_ms": ms_p, **fe_prev, "ms_one_point": ms_one,
         **fold_eval_bound(fops, ev.static_stack.shape[0], w1.shape[0], 1 << K,
-                          len(js) - 2),
+                          n_pts),
         "library_ms": None,
-        "shape": f"nrow=2^{K}, {len(js) - 2} fold points, {len(fops)} ops",
+        "shape": f"nrow=2^{K}, {n_pts} fold points, {len(fops)} ops, {n_regs} "
+                 f"registers",
     })
     # the fixed-base kernels at every table shape of the k=17 steps: the
     # delta widths (the write positions' count, w=5) and the cross-term
@@ -1740,7 +1888,6 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "phases_ms": head["phases_ms"],
-        "generic_bound_ms": head["generic_bound_ms"],
         "shape": f"N={head['n']} (the k={K} delta width) {head['curve']}, "
                  f"w={head['window']}", "at": msm_at,
     })
@@ -1749,9 +1896,11 @@ def main() -> int:
         "source": "mira_tpu_torch/csrc/fixed_table.cu",
         "replaces": "mira_tpu/ops/pallas_msm.py:895",
         "launches": counts["fixed_table"],
-        "max_abs_err": max(t["max_abs_err"] for t in tab_at),
+        "max_abs_err": max([table_err] + [t["max_abs_err"] for t in tab_at]),
         "ms": tab_at[0]["ms"], "plain_ms": tab_at[0]["plain_ms"],
+        **{k: tab_at[0][k] for k in ("paired_ms", "prev_ms") if k in tab_at[0]},
         "bound_ms": tab_at[0]["bound_ms"], "bound_by": tab_at[0]["bound_by"],
+        "bound_route": tab_at[0]["bound_route"],
         "library_ms": None,
         "shape": f"N={head['n']} {head['curve']}, w={head['window']}", "at": tab_at,
     })
@@ -1792,6 +1941,8 @@ def main() -> int:
             "shape": f"N=2^{K} bn254 (the cross-term width), full-width scalars",
             "at": at,
         })
+    kernels[1]["launches_mesh"] = mesh_counts["fold_eval"]
+    kernels[1]["launches_dryrun"] = dry_counts["fold_eval"]
     mesh_summary = {"step_s": mesh_secs, "verify_s": mesh_verify,
                     "peak_gib": mesh_peak / 2**30, "dryrun_s": dry_secs}
     log(f"mesh path summary: {json.dumps(mesh_summary)}")
@@ -1811,7 +1962,8 @@ def main() -> int:
         + json.dumps({k: [c, round(t, 3)] for k, (c, t) in tracing.totals().items()}))
     log(f"protogalaxy prove (s): {pg_secs}; launches over the path: {pg_counts}; "
         f"peak device memory {pg_peak / 2**30:.3f} GiB")
-    require_launched(pg_counts, ("msm_bucket", "ntt_stage"), "the ProtoGalaxy path")
+    require_launched(pg_counts, ("msm_bucket", "ntt_stage", "fold_eval"),
+                     "the ProtoGalaxy path")
     phase("protogalaxy_path", t0)
 
     # the three kernels of the polynomial and hashing side: no PyTorch call
@@ -1858,6 +2010,7 @@ def main() -> int:
         "at": poseidon_at,
     })
     kernels[0]["launches_protogalaxy"] = pg_counts["msm_bucket"]
+    kernels[1]["launches_protogalaxy"] = pg_counts["fold_eval"]
 
     if args.profile:
         t0 = time.perf_counter()

@@ -41,13 +41,14 @@ _SIGNATURES = {
     "mira_msm_bucket_acc": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "mira_msm_bucket_reduce": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "mira_msm_bucket_finish": [_I, _P, _I, _I, _P, _P],
-    "mira_fold_eval": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P,
-                       _P],
+    "mira_fold_eval": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I,
+                       _I, _P, _P],
+    "mira_fold_eval_block": [_I, _I],
     "mira_msm_fixed_blocks": [_I, _I, _I, _I],
     "mira_msm_fixed_recode": [_P, _I, _I, _I, _P, _P],
     "mira_msm_fixed_acc": [_I, _I, _P, _P, _I, _I, _I, _P, _P],
     "mira_msm_fixed_finish": [_I, _I, _P, _I, _I, _P, _P, _P, _P],
-    "mira_fixed_table": [_I, _P, _P, _P, _I, _I, _P, _P],
+    "mira_fixed_table": [_I, _P, _P, _P, _I, _I, _P, _P, _P],
     "mira_ntt_stage": [_I, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     "mira_ntt_fourstep": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
     "mira_poseidon": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],

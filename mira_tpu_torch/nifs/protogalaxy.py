@@ -1,12 +1,14 @@
 """ProtoGalaxy: multi-instance folding via polynomial interpolation (port of
 mira_tpu/nifs/protogalaxy.py; reference src/nifs/protogalaxy/).
 
-Gate evaluations come from the column evaluator (one plain program per gate
-over all rows); the pow_i binary tree (compute_F / compute_G) is a vectorised
-halving reduction over the evaluation array, batched over all interpolation
-points at once; compute_K's coset transforms go through ops/ntt.py, so on
-the card they launch the NTT kernels.  Everything runs on the device of the
-traces' witnesses.
+Gate evaluations come from the fold evaluator (polynomial/fold_evaluator.py,
+one op program per gate over all rows at the single point j = 0: the kernel
+on the card, its plain version on the CPU); the pow_i binary tree
+(compute_F / compute_G) is a vectorised halving reduction over the
+evaluation array, batched over all interpolation points at once;
+compute_K's coset transforms go through ops/ntt.py, so on the card they
+launch the NTT kernels.  Everything runs on the device of the traces'
+witnesses.
 
 Reference quirks preserved: the "powers" of beta/delta are additive doublings
 (2^i * beta, protogalaxy/mod.rs:72-77 uses Field::double), and the verifier is
@@ -24,9 +26,11 @@ per level as `prove` does.  Where F is zero (a fold onto the zero accumulator
 of a circuit whose gates have no constant term, as in the K = 4 tests) the
 two agree exactly.
 
-The number of incoming traces L should leave L + 1 a power of two: otherwise
-the fold domain has a point where the folded witness is all zero, and a gate
-with a constant term does not vanish there (see compute_K).
+`prove` raises ValueError unless the number of incoming traces L leaves
+L + 1 a power of two: otherwise the fold domain has a point where the
+folded witness is all zero, and a gate with a constant term does not vanish
+there, so the quotient of compute_K is no polynomial and the folded
+accumulator misses its relation.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from ..plonk.structure import (
     RelaxedPlonkWitness,
     sps_verify,
 )
-from ..polynomial.evaluator import ColumnEvaluator
+from ..polynomial.fold_evaluator import FoldEvaluator
 from ..utils.tracing import instrument, span
 from ..polynomial.univariate import (
     UnivariatePoly,
@@ -103,18 +107,21 @@ class ProtoGalaxy:
         key = ("protogalaxy_gates", str(device))
         if key not in cache:
             cache[key] = [
-                ColumnEvaluator(g, S.modulus, S.num_advice_columns,
-                                S.num_lookups(), S.selectors, S.fixed_columns,
-                                1 << S.k, device)
+                FoldEvaluator(g, S.modulus, S.num_advice_columns,
+                              S.num_lookups(), S.selectors, S.fixed_columns,
+                              1 << S.k, device)
                 for g in S.gates
             ]
         return cache[key]
 
     @classmethod
     def _evaluate_gates(cls, S: PlonkStructure, W, challenges: List[int]):
-        """Gate-major concatenated evaluations, (num_gates * nrow, 8)."""
+        """Gate-major concatenated evaluations, (num_gates * nrow, 8): each
+        gate at the fold point j = 0 of W + j W."""
         evs = cls._gate_evaluators(S, W[0].device)
-        return torch.cat([ev(tuple(W), (), challenges) for ev in evs], dim=0)
+        zero = [0] * len(challenges)
+        return torch.cat([ev.fold_eval_multi(W, W, [0], challenges, zero)[0]
+                          for ev in evs], dim=0)
 
     @classmethod
     def _pow_i_reduce(cls, S: PlonkStructure, evals, challenge_rows: List[List[int]]):
@@ -322,6 +329,10 @@ class ProtoGalaxy:
     @instrument
     def prove(cls, ck, pp: ProtoGalaxyProverParam, ro_acc,
               accumulator: Accumulator, incoming: Sequence[PlonkTrace]):
+        L = len(incoming)
+        if (L + 1) & L:
+            raise ValueError(f"ProtoGalaxy.prove: {L} incoming traces; L + 1 "
+                             "must be a power of two (1, 3, 7, ...)")
         S = pp.S
         p = S.modulus
         base_mod = S.curve.base_modulus

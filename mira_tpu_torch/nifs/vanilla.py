@@ -11,10 +11,12 @@ context where one is attached, else the reference's seeded random
 Tuple12s, drawn from `rng` in mira_tpu's order.
 
 With a mesh (parallel/mesh.py), as mira_tpu's mesh prove: each rank
-evaluates its block of rows with the column evaluator (the fold evaluator
-kernel is a single-device program), combines its block of the cross terms,
-gathers the blocks whole, and commits them by sharded MSMs; the witness
-fold is row-sharded too (plonk/structure.py).
+evaluates its block of rows, combines its block of the cross terms, gathers
+the blocks whole, and commits them by sharded MSMs; the witness fold is
+row-sharded too (plonk/structure.py).  mira_tpu evaluates the block with its
+XLA column evaluator, its Pallas sweep being a single-device program; here
+every rank holds the whole columns, so the fold evaluator (the kernel on the
+card) takes the block as a row range, all fold points in one call.
 """
 
 from __future__ import annotations
@@ -139,16 +141,11 @@ class VanillaFS:
             js = list(range(d + 1))
         nrow = W1.E.shape[0]
         lo, hi = (0, nrow) if mesh is None else mesh.rows(nrow)
-        if js and mesh is not None:
-            ev = S._evaluator("homogeneous", W1.E.device)
-            with span("cross_term_eval"):
-                evals = [ev.fold_eval(W1.W, W2.W, j,
-                                      [(a + j * b) % p for a, b in zip(ch1, ch2)],
-                                      rows=(lo, hi)) for j in js]
-        elif js:
+        if js:
             ev = S.fold_evaluator(W1.E.device)
             with span("cross_term_eval"):
-                outs = ev.fold_eval_multi(W1.W, W2.W, js, ch1, ch2)
+                outs = ev.fold_eval_multi(W1.W, W2.W, js, ch1, ch2,
+                                          rows=(lo, hi))
             evals = [outs[i] for i in range(len(js))]
         else:
             evals = []

@@ -23,7 +23,7 @@ import torch
 from ..curves.host import CurveParams
 
 from .. import _build
-from ..fields.limbs import NUM_WORDS
+from ..fields.limbs import NUM_WORDS, limb_field
 from .msm import (
     PIPPENGER_WINDOW,
     WINDOW,
@@ -48,6 +48,9 @@ FIXED_WINDOWS = (5, 6)  # the windows the fixed-base kernels are built for
 _XYZZ_WORDS = 4 * NUM_WORDS
 RB_SPAN = 1024  # parts per block of csrc/msm_common.cuh window_reduce
 FIXED_BLOCK = 128  # threads of an accumulate block of csrc/msm_fixed.cu (FIX_T)
+# csrc/msm_bucket.cu packs a record as (point index << 1 | sign) and counts
+# records, offsets and cursors in 32 bits: N x nwin must stay below 2^31
+BUCKET_MAX_RECORDS = 1 << 31
 
 
 @lru_cache(maxsize=None)
@@ -79,6 +82,14 @@ def reduce_tmp_points(nwin: int, nparts: int) -> int:
 def bits_groups(c: int) -> int:
     """Blocks of csrc/msm_bucket.cu `bucket_bits` per (window, bit)."""
     return max(1, -(-(1 << (c - 2)) // RB_SPAN))
+
+
+def check_bucket_records(n: int, nwin: int):
+    """Raise ValueError unless kernel 1's n x nwin (point, window) records
+    fit its 32-bit indices (BUCKET_MAX_RECORDS)."""
+    if n * nwin >= BUCKET_MAX_RECORDS:
+        raise ValueError(f"msm_bucket: {n} points x {nwin} windows = "
+                         f"{n * nwin} records, at least 2^31")
 
 
 def _xyzz(n: int, dev) -> torch.Tensor:
@@ -135,6 +146,7 @@ def bucket_phases(scalars: torch.Tensor, points, curve: CurveParams,
         return _identity(curve, dev), None
     c = c or bucket_window(n, curve.scalar_modulus.bit_length())
     nwin = num_windows(curve.scalar_modulus.bit_length(), c)
+    check_bucket_records(n, nwin)
     m = nwin << (c - 1)
     i32 = dict(dtype=torch.int32, device=dev)
     digits = torch.empty(nwin, n, dtype=torch.int16, device=dev)
@@ -239,6 +251,11 @@ def fixed_table(points, curve: CurveParams, window: int) -> torch.Tensor:
 
 
 def fixed_table_cuda(points, curve: CurveParams, window: int) -> torch.Tensor:
+    """Kernel 3b (csrc/fixed_table.cu); `precompute_fixed_table_plain` is its
+    plain version, `fixed_table_model` its algorithm on host integers.  The
+    bases must be affine (Z = 1) or the identity (Z = 0): the kernel's
+    affine doubling and mixed additions take any other Z for 1, so other
+    bases raise ValueError (one check on the card per build)."""
     global table_launches
     field = _build.field_id(curve.base_modulus)
     if window not in FIXED_WINDOWS:
@@ -252,13 +269,19 @@ def fixed_table_cuda(points, curve: CurveParams, window: int) -> torch.Tensor:
             raise ValueError("fixed_table_cuda: expects (N, 8) int32 tensors on "
                              "one CUDA device")
     X, Y, Z = (t.contiguous() for t in (X, Y, Z))
+    one = limb_field(curve.base_modulus).one((1,), dev)
+    if not ((Z == one).all(-1) | (Z == 0).all(-1)).all():
+        raise ValueError("fixed_table_cuda: every base must be affine (Z = 1) "
+                         "or the identity (Z = 0)")
     ntab = 1 << (window - 1)
     tab = torch.empty(n, ntab, 2, NUM_WORDS, dtype=torch.int32, device=dev)
     if n == 0:
         return tab
+    # the chain's factors H_e, Z_{e+1} = Z_e H_e, for the walk back
+    hs = torch.empty(ntab - 2, n, NUM_WORDS, dtype=torch.int32, device=dev)
     err = _build.lib().mira_fixed_table(
         field, X.data_ptr(), Y.data_ptr(), Z.data_ptr(), n, window,
-        tab.data_ptr(), _build.stream_ptr(dev))
+        tab.data_ptr(), hs.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "fixed_table")
     table_launches += 1
     return tab

@@ -339,6 +339,72 @@ def precompute_fixed_table_plain(points, curve: CurveParams, window: int):
     return torch.stack(cols, 1)
 
 
+TABLE_BLOCK = 128  # lanes per block of csrc/fixed_table.cu (TAB_T)
+
+
+def fixed_table_model(points, curve: CurveParams, window: int,
+                      block: int = TABLE_BLOCK):
+    """Kernel 3b's algorithm on host integers: per lane an affine doubling
+    and mixed Jacobian additions (Z_{e+1} = Z_e H_e, the H's kept), then per
+    block of `block` lanes a product tree of the lanes' last Z (1 for an
+    identity lane), one inversion of its root and the walk back down the
+    tree, and per lane the walk back down its chain.  points: AffinePoints
+    of `curve`.  Returns per lane the 2^(w-1) affine (x, y) of 1P..2^(w-1)P,
+    (0, 0) for an identity lane."""
+    p = curve.base_modulus
+    ntab = 1 << (window - 1)
+    chains = []  # per lane: (live, [(X, Y)], [H], Z_last)
+    for P in points:
+        if P.is_inf:
+            chains.append((False, None, None, 1))
+            continue
+        x, y = P.x.v, P.y.v
+        A, B = x * x % p, y * y % p  # affine doubling, Z3 = 2y
+        C = B * B % p
+        D = 2 * ((x + B) ** 2 - A - C) % p
+        E = 3 * A % p
+        X = (E * E - 2 * D) % p
+        Y = (E * (D - X) - 8 * C) % p
+        Z = 2 * y % p
+        xy, hs = [(x, y), (X, Y)], []
+        for _ in range(2, ntab):  # + (x, y), mixed
+            Z1Z1 = Z * Z % p
+            H = (x * Z1Z1 - X) % p
+            R = (y * Z * Z1Z1 - Y) % p
+            HH = H * H % p
+            HHH = H * HH % p
+            V = X * HH % p
+            X3 = (R * R - HHH - 2 * V) % p
+            Y = (R * (V - X3) - Y * HHH) % p
+            X, Z = X3, Z * H % p
+            xy.append((X, Y))
+            hs.append(H)
+        chains.append((Z != 0, xy, hs, Z if Z else 1))
+    out = []
+    for b0 in range(0, len(points), block):
+        lanes = chains[b0 : b0 + block]
+        tree = [0] * block + [c[3] for c in lanes] + [1] * (block - len(lanes))
+        for k in range(block - 1, 0, -1):
+            tree[k] = tree[2 * k] * tree[2 * k + 1] % p
+        tree[1] = pow(tree[1], p - 2, p)
+        for k in range(1, block):
+            a, b = tree[2 * k], tree[2 * k + 1]
+            tree[2 * k], tree[2 * k + 1] = tree[k] * b % p, tree[k] * a % p
+        for t, (live, xy, hs, _) in enumerate(lanes):
+            if not live:
+                out.append([(0, 0)] * ntab)
+                continue
+            zi = tree[block + t]
+            row = [xy[0]] + [None] * (ntab - 1)
+            for e in range(ntab - 1, 0, -1):
+                zi2 = zi * zi % p
+                row[e] = (xy[e][0] * zi2 % p, xy[e][1] * zi2 * zi % p)
+                if e > 1:
+                    zi = zi * hs[e - 2] % p
+            out.append(row)
+    return out
+
+
 def tree_sum(ops, pts):
     """Sum lazy Jacobian points over the last batch axis by a halving tree
     of complete additions (the lower half plus the upper half, an identity

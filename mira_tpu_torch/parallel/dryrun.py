@@ -75,11 +75,14 @@ def _digest(obj) -> str:
 
 def mesh_fold_plain(mesh, k: int = K) -> dict:
     """Part 4 on one rank: the mesh's trace instance and folded trace as
-    plain data, after checking that every rank holds the same."""
+    plain data, and the kinds of evaluator the structure built ("fold": the
+    fold evaluator on the rank's row range), after checking that every rank
+    holds the same."""
     from ..convert import relaxed_trace_plain, to_plain
 
-    _, _, trace, folded = demo_fold(mesh, mesh.device, k)
-    out = {"trace_u": to_plain(trace.u), "folded": relaxed_trace_plain(folded)}
+    S, _, trace, folded = demo_fold(mesh, mesh.device, k)
+    out = {"trace_u": to_plain(trace.u), "folded": relaxed_trace_plain(folded),
+           "evaluators": sorted({key[0] for key in S._cache()})}
     if len(set(mesh.all_gather_object(_digest(out)))) != 1:
         raise AssertionError("the ranks' folded traces differ")
     return out

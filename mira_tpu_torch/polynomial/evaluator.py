@@ -4,9 +4,8 @@ mira_tpu/polynomial/evaluator.py).
 * `eval_rows_host` — Python-int row evaluation, the golden reference.
 * `ColumnEvaluator` — plain torch evaluation of a whole column at once on
   lazy field values (rotations are `torch.roll`); an audit evaluator
-  independent of the fold evaluator's op list, and the evaluator of a
-  mesh's row blocks (`rows=(lo, hi)`: rotations read the whole columns,
-  which every rank holds, so no halo is exchanged).
+  independent of the fold evaluator's op list, which evaluates every path's
+  gates and cross terms (polynomial/fold_evaluator.py).
 """
 
 from __future__ import annotations
@@ -121,10 +120,8 @@ class ColumnEvaluator:
             for col in selectors
         ] + [self.lf.encode(col, device) for col in fixed]
 
-    def _resolve(self, q: Query, W1s, W2s, idx=None) -> torch.Tensor:
-        """The column of query q, rotated; with idx, only the rows idx of
-        the rotated column (read from the whole column, so a rotation
-        needs no rows of another rank)."""
+    def _resolve(self, q: Query, W1s, W2s) -> torch.Tensor:
+        """The column of query q, rotated."""
         max_width = self.num_advice + 5 * self.num_lookup
         if q.index < self.n_sel + self.n_fix:
             col = self.static_cols[q.index]
@@ -138,26 +135,22 @@ class ColumnEvaluator:
             rnd, colj = advice_round_col(self.num_advice, idx_w, len(Ws))
             col = Ws[rnd][colj * self.nrow : (colj + 1) * self.nrow]
         rot = q.rotation % self.nrow
-        if idx is not None:
-            return col[(idx + rot) % self.nrow if rot else idx]
         return torch.roll(col, -rot, dims=0) if rot else col
 
-    def _run(self, W1s, W2s, challenges, rows=None, j=None) -> torch.Tensor:
-        """The expression on rows [lo, hi) (all rows without `rows`).  With
-        j, every advice query reads W1 + j*W2 of its column (W2s are then
-        the second instance's rounds, not further queries)."""
+    def _run(self, W1s, W2s, challenges, j=None) -> torch.Tensor:
+        """The expression on every row.  With j, every advice query reads
+        W1 + j*W2 of its column (W2s are then the second instance's rounds,
+        not further queries)."""
         lf = self.lf
         dev = self.static_cols[0].device if self.static_cols else W1s[0].device
-        lo, hi = rows if rows is not None else (0, self.nrow)
-        idx = None if rows is None else torch.arange(lo, hi, device=dev)
-        shape = (hi - lo,)
+        shape = (self.nrow,)
         n_static = self.n_sel + self.n_fix
 
         def poly(q):
             if j is None or q.index < n_static:
-                return lf.lz(self._resolve(q, W1s, () if j is not None else W2s, idx))
-            a = lf.lz(self._resolve(q, W1s, (), idx))
-            return a + lf.lz(self._resolve(q, W2s, (), idx)) * lf.lz_const(j, shape, dev)
+                return lf.lz(self._resolve(q, W1s, () if j is not None else W2s))
+            a = lf.lz(self._resolve(q, W1s, ()))
+            return a + lf.lz(self._resolve(q, W2s, ())) * lf.lz_const(j, shape, dev)
 
         out = self.expr.evaluate(
             constant=lambda c: lf.lz_const(c, shape, dev),
@@ -170,16 +163,14 @@ class ColumnEvaluator:
         )
         return lf.canon(out)
 
-    def __call__(self, W1s: Sequence, W2s: Sequence, challenges: Sequence[int],
-                 rows=None):
-        """challenges: python ints; rows: (lo, hi), the rows to evaluate."""
+    def __call__(self, W1s: Sequence, W2s: Sequence, challenges: Sequence[int]):
+        """challenges: python ints."""
         return self._run(list(W1s), list(W2s),
-                         [c % self.modulus for c in challenges], rows)
+                         [c % self.modulus for c in challenges])
 
     def fold_eval(self, W1s: Sequence, W2s: Sequence, j: int,
-                  challenges: Sequence[int], rows=None):
-        """P(W1 + j*W2) with the challenges already folded, on rows
-        (lo, hi) (all rows without `rows`): the row range one rank of a mesh
-        evaluates."""
+                  challenges: Sequence[int]):
+        """P(W1 + j*W2) with the challenges already folded: the audit
+        counterpart of the fold evaluator at one point."""
         return self._run(list(W1s), list(W2s),
-                         [c % self.modulus for c in challenges], rows, j % self.modulus)
+                         [c % self.modulus for c in challenges], j % self.modulus)

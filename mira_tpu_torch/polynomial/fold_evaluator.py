@@ -7,7 +7,9 @@ split off and evaluated on the host per fold point) is compiled into the
 row-VM op list of mira_tpu's native evaluator, with common subexpressions
 shared and registers compacted by liveness.  On a CUDA tensor the op list
 runs in csrc/fold_eval.cu (one thread per row); on a CPU tensor the same op
-list runs as plain torch ops over whole columns (`fold_eval_plain`).
+list runs as plain torch ops over whole columns (`fold_eval_plain`).  A call
+may take a range of rows (`rows=(lo, hi)`, a mesh rank's block): the
+columns stay whole, so a rotation reads its rows wherever they lie.
 """
 
 from __future__ import annotations
@@ -43,6 +45,19 @@ OP_NEG = 6
 OP_OUTPUT = 7
 
 launches = 0  # fold_eval kernel launches
+
+
+def fold_eval_block(n_regs: int, n_ops: int) -> int:
+    """The host-side mirror of csrc/fold_eval.cu `mira_fold_eval_block`,
+    which makes the choice: rows per block, 128 halved down to 32 until the
+    block's registers (32 bytes each a row) and its copy of the op program
+    (16 bytes an op) fit its 232,448 bytes of shared memory.  Raises
+    ValueError where even 32 rows do not."""
+    for block in (128, 64, 32):
+        if n_ops * 16 + n_regs * 32 * block <= 232448:
+            return block
+    raise ValueError(f"fold_eval: {n_regs} registers and {n_ops} ops do not "
+                     "fit one 32-row block's shared memory")
 
 
 def _split_scalar_subtrees(expr: Expression, n_ch_base: int):
@@ -290,10 +305,11 @@ class FoldEvaluator:
         return torch.stack(cols).contiguous()
 
     def fold_eval_multi(self, W1s, W2s, j_values: Sequence[int],
-                        ch1: Sequence[int], ch2: Sequence[int]):
-        """P(W1 + j*W2) for every j.  ch1/ch2: plain-int challenge vectors of
-        the two instances (the challenge at point j is ch1 + j*ch2 mod p).
-        Returns (n_j, nrow, 8) Montgomery words."""
+                        ch1: Sequence[int], ch2: Sequence[int], rows=None):
+        """P(W1 + j*W2) for every j on rows [lo, hi) (all rows without
+        `rows`).  ch1/ch2: plain-int challenge vectors of the two instances
+        (the challenge at point j is ch1 + j*ch2 mod p).  Returns (n_j,
+        hi - lo, 8) Montgomery words."""
         p = self.modulus
         lf = self.lf
         scalars, ops, ops_t, n_regs, consts = self._program(len(ch1))
@@ -313,16 +329,27 @@ class FoldEvaluator:
                              device=self.device)
         if self.device.type == "cpu":
             return fold_eval_plain(lf, ops, self.static_stack, w1, w2, ch, jm,
-                                   consts)
+                                   consts, rows)
         return fold_eval_cuda(lf, ops_t, n_regs, self.static_stack, w1, w2,
-                              ch, jm, consts)
+                              ch, jm, consts, rows)
+
+
+def _row_range(rows, nrow: int):
+    lo, hi = (0, nrow) if rows is None else rows
+    if not 0 <= lo <= hi <= nrow:
+        raise ValueError(f"fold_eval: rows {rows} outside [0, {nrow})")
+    return lo, hi
 
 
 @torch.inference_mode()
-def fold_eval_plain(lf, ops, stat, w1, w2, ch, jm, consts) -> torch.Tensor:
+def fold_eval_plain(lf, ops, stat, w1, w2, ch, jm, consts,
+                    rows=None) -> torch.Tensor:
     """Plain torch version of the fold_eval kernel: the same op list,
-    interpreted over whole columns on lazy field values."""
-    n_j, nrow = jm.shape[0], stat.shape[1]
+    interpreted over whole columns (the rows [lo, hi) of them with `rows`)
+    on lazy field values."""
+    lo, hi = _row_range(rows, stat.shape[1])
+    stat, w1, w2 = stat[:, lo:hi], w1[:, lo:hi], w2[:, lo:hi]
+    n_j, nrow = jm.shape[0], hi - lo
     dev = stat.device
     out = torch.empty(n_j, nrow, NUM_WORDS, dtype=torch.int32, device=dev)
     for j in range(n_j):
@@ -351,24 +378,34 @@ def fold_eval_plain(lf, ops, stat, w1, w2, ch, jm, consts) -> torch.Tensor:
     return out
 
 
-def fold_eval_cuda(lf, ops_t, n_regs, stat, w1, w2, ch, jm, consts):
-    """Launch csrc/fold_eval.cu; returns (n_j, nrow, 8) Montgomery words."""
+def fold_eval_cuda(lf, ops_t, n_regs, stat, w1, w2, ch, jm, consts, rows=None):
+    """Launch csrc/fold_eval.cu on rows [lo, hi) (all rows without `rows`);
+    returns (n_j, hi - lo, 8) Montgomery words."""
     global launches
     field = _build.field_id(lf.modulus)
-    n_j, nrow = jm.shape[0], stat.shape[1]
+    nrow = stat.shape[1]
+    lo, hi = _row_range(rows, nrow)
+    n_j, n_ops = jm.shape[0], ops_t.shape[0]
     dev = stat.device
     for t in (stat, w1, w2, ch, jm, consts):
-        if t.device != dev or t.dtype != torch.int32 or t.shape[-1] != NUM_WORDS:
+        if (t.device != dev or dev.type != "cuda" or t.dtype != torch.int32
+                or t.shape[-1] != NUM_WORDS):
             raise ValueError("fold_eval_cuda: expects int32 word tensors on "
                              "one CUDA device")
-    stat, w1, w2, ch, jm, consts = (
-        t.contiguous() for t in (stat, w1, w2, ch, jm, consts))
-    regs = torch.empty(n_regs, nrow, NUM_WORDS, dtype=torch.int32, device=dev)
-    out = torch.empty(n_j, nrow, NUM_WORDS, dtype=torch.int32, device=dev)
-    err =_build.lib().mira_fold_eval(
-        field, ops_t.data_ptr(), ops_t.shape[0], stat.data_ptr(),
+    if w1.shape[1] != nrow or w2.shape[1] != nrow:
+        raise ValueError("fold_eval_cuda: the columns differ in length")
+    if _build.lib().mira_fold_eval_block(n_regs, n_ops) == 0:
+        raise ValueError(f"fold_eval_cuda: {n_regs} registers and {n_ops} ops do "
+                         "not fit one 32-row block's shared memory")
+    stat, w1, w2, ch, jm, consts, ops_t = (
+        t.contiguous() for t in (stat, w1, w2, ch, jm, consts, ops_t))
+    out = torch.empty(n_j, hi - lo, NUM_WORDS, dtype=torch.int32, device=dev)
+    if hi == lo or n_j == 0:
+        return out
+    err = _build.lib().mira_fold_eval(
+        field, ops_t.data_ptr(), n_ops, n_regs, stat.data_ptr(),
         w1.data_ptr(), w2.data_ptr(), ch.data_ptr(), ch.shape[1],
-        jm.data_ptr(), n_j, consts.data_ptr(), nrow, regs.data_ptr(),
+        jm.data_ptr(), n_j, consts.data_ptr(), nrow, lo, hi - lo,
         out.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(err, "fold_eval")

@@ -136,6 +136,95 @@ def test_fold_eval_kernel_matches_plain(cuda_device):  # noqa: F811
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("rows", [(0, 16), (3, 11), (5, 6), (9, 16), (15, 16)],
+                         ids=lambda r: f"{r[0]}-{r[1]}")
+def test_fold_eval_kernel_row_ranges(rows, cuda_device):  # noqa: F811
+    """A row range (a mesh rank's block): ends off the block, one row, the
+    last rows, where the rotations wrap."""
+    S = CircuitRunner(4, _Fibo(), [], BN254_G1).collect_structure()
+    lf = limb_field(S.modulus)
+    rng = np.random.default_rng(2)
+    p = S.modulus
+    Ws1, Ws2 = ([[int(x) % p for x in rng.integers(0, 1 << 62, size=sz)]
+                 for sz in S.round_sizes] for _ in range(2))
+    ch1 = [int(x) % p for x in rng.integers(0, 1 << 62, size=S.num_challenges + 1)]
+    ch2 = list(reversed(ch1))
+    js = list(range(S.get_degree_for_folding()))
+    want = S.fold_evaluator("cpu").fold_eval_multi(
+        [lf.encode(w) for w in Ws1], [lf.encode(w) for w in Ws2], js, ch1, ch2)
+    got = S.fold_evaluator(cuda_device).fold_eval_multi(
+        [lf.encode(w, cuda_device) for w in Ws1],
+        [lf.encode(w, cuda_device) for w in Ws2], js, ch1, ch2, rows=rows)
+    assert torch.equal(got.cpu(), want[:, rows[0]:rows[1]])
+
+
+@pytest.mark.parametrize("n_regs, block", [(40, 128), (60, 64), (120, 32), (220, 32)])
+def test_fold_eval_kernel_register_file_sizes(n_regs, block, cuda_device):  # noqa: F811
+    """A hand-made program that keeps n_regs registers live (every load
+    first, then their sum): blocks of 128, 64 and 32 rows."""
+    from mira_tpu_torch import _build
+    from mira_tpu_torch.polynomial import fold_evaluator as fe
+
+    lf = limb_field(BN254_FR)
+    nrow, n_static = 1000, 7
+    rng = np.random.default_rng(n_regs)
+    stat = lf.encode([int(x) for x in rng.integers(0, 1 << 62, size=n_static * nrow)],
+                     cuda_device).reshape(n_static, nrow, 8)
+    w = lf.encode([int(x) for x in rng.integers(0, 1 << 62, size=2 * nrow)],
+                  cuda_device).reshape(2, 1, nrow, 8)
+    ops = ([(fe.OP_LOAD_STATIC, i % n_static, -1, i) for i in range(n_regs - 1)]
+           + [(fe.OP_LOAD_FOLD, 0, -1, n_regs - 1)]
+           + [(fe.OP_MUL if i % 2 else fe.OP_ADD, 0, i, 0) for i in range(1, n_regs)]
+           + [(fe.OP_OUTPUT, 0, -1, 0)])
+    ops_t = torch.tensor(ops, dtype=torch.int32, device=cuda_device)
+    jm = lf.encode([0, 1, 5], cuda_device)
+    ch = torch.zeros(3, 1, 8, dtype=torch.int32, device=cuda_device)
+    consts = torch.zeros(1, 8, dtype=torch.int32, device=cuda_device)
+    assert _build.lib().mira_fold_eval_block(n_regs, len(ops)) == block
+    assert fe.fold_eval_block(n_regs, len(ops)) == block  # the host mirror
+    for rows in (None, (37, 1000)):
+        got = fe.fold_eval_cuda(lf, ops_t, n_regs, stat, w[0], w[1], ch, jm,
+                                consts, rows)
+        want = fe.fold_eval_plain(lf, ops, stat, w[0], w[1], ch, jm, consts, rows)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="shared memory"):  # 400 KB a 32-row block
+        fe.fold_eval_cuda(lf, ops_t, 400, stat, w[0], w[1], ch, jm, consts)
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+@pytest.mark.parametrize("window", [5, 6])
+def test_fixed_table_kernel_identity_blocks(curve, window, cuda_device):  # noqa: F811
+    """Kernel 3b's blocks of 128 lanes: one of live lanes, one with a single
+    identity lane, one of identity lanes only, and a last block of five."""
+    from mira_tpu_torch.ops.msm import TABLE_BLOCK
+
+    rng = random.Random(window)
+    base = [AffinePoint.random(curve, rng) for _ in range(9)]
+    n = 3 * TABLE_BLOCK + 5
+    ident = AffinePoint.identity(curve)
+    pts = [base[i % 9] for i in range(n)]
+    pts[TABLE_BLOCK + 17] = ident
+    pts[2 * TABLE_BLOCK : 3 * TABLE_BLOCK] = [ident] * TABLE_BLOCK
+    P = jacobian_ops(curve.name).encode_points(pts, cuda_device)
+    table = cuda_msm.fixed_table_cuda(P, curve, window)
+    torch.cuda.synchronize()
+    assert torch.equal(table, precompute_fixed_table_plain(P, curve, window))
+    assert not table[2 * TABLE_BLOCK : 3 * TABLE_BLOCK].any()
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+def test_fixed_table_kernel_rejects_jacobian_bases(curve, cuda_device):  # noqa: F811
+    """Kernel 3b takes affine bases and identities only: a base with Z = 2
+    (a valid Jacobian point) raises instead of giving a wrong table."""
+    p = curve.base_modulus
+    pt = AffinePoint.random(curve, random.Random(3))
+    x, y = int(pt.x.v), int(pt.y.v)
+    jac = tuple(limb_field(p).encode([v % p] * 2, cuda_device)
+                for v in (4 * x, 8 * y, 2))  # (x, y) with Z = 2
+    with pytest.raises(ValueError, match="affine"):
+        cuda_msm.fixed_table_cuda(jac, curve, 5)
+
+
 @pytest.mark.parametrize("curve", CURVES, ids=IDS)
 @pytest.mark.parametrize("window", [5, 6])
 @pytest.mark.parametrize("n", [1, 255, 2117, 4096])

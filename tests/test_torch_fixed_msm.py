@@ -4,7 +4,10 @@ layer's fixed-base configuration: the multiples table equals mira_tpu's
 adversarial inputs (duplicate bases, a zero scalar, an identity lane,
 scalars 1, r - 1 and 2^250 - 1), commitments through tables equal those
 through the bucket MSM, and tables are built only where mira_tpu builds
-them.  Exact equality throughout."""
+them.  The table build's kernel algorithm (`fixed_table_model`: mixed
+additions, one inversion per block of lanes) equals mira_tpu's table and the
+plain version, with blocks of no, one and only identity lanes.  Exact
+equality throughout."""
 
 import random
 import types
@@ -25,7 +28,9 @@ from mira_tpu_torch.ops import commitment as commitment_mod
 from mira_tpu_torch.ops import cuda_msm
 from mira_tpu_torch.ops.commitment import CommitmentKey
 from mira_tpu_torch.ops.msm import (
+    TABLE_BLOCK,
     encode_scalars,
+    fixed_table_model,
     msm_fixed_plain,
     precompute_fixed_table_plain,
     signed_digits,
@@ -78,6 +83,65 @@ def test_plain_table_matches_mira(curve, window):
             want = lf.decode(limbs16_to_words(theirs[c * ntab + v].T))
             assert lf.decode(mine[:, v, c]) == want
     assert lf.decode(mine[7, 2, 0]) == [pts[7].scalar_mul(3).x.v]
+
+
+def _mira_table(curve, pts, window, lf):
+    """mira_tpu's XLA table of pts, decoded: [lane][v] = (x, y)."""
+    ntab = 1 << (window - 1)
+    theirs = np.asarray(precompute_fixed_table(
+        jax_jacobian_ops(curve.name).encode_points(to_mira(pts)),
+        to_mira(curve), window))
+    cols = [[lf.decode(limbs16_to_words(theirs[c * ntab + v].T)) for c in range(2)]
+            for v in range(ntab)]
+    return [[(cols[v][0][i], cols[v][1][i]) for v in range(ntab)]
+            for i in range(len(pts))]
+
+
+# kernel 3b's lanes at a block of 4: a block of live lanes, one with an
+# identity lane, one of identity lanes only, a last block of two lanes
+MODEL_IDENTITY = {"none": (), "one": (5,), "only": (8, 9, 10, 11)}
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+@pytest.mark.parametrize("window", [5, 6])
+def test_table_model_vs_mira_and_plain(curve, window):
+    """fixed_table_model at a block of 4 over 14 lanes (blocks of no, one
+    and only identity lanes, and a last block of two): mira_tpu's table on
+    the live lanes, the plain version on every lane ((0, 0) for the
+    identity)."""
+    rng = random.Random(window)
+    pts = [AffinePoint.random(curve, rng) for _ in range(14)]
+    for lanes in MODEL_IDENTITY.values():
+        for i in lanes:
+            pts[i] = AffinePoint.identity(curve)
+    model = fixed_table_model(pts, curve, window, block=4)
+    lf = limb_field(curve.base_modulus)
+    plain = precompute_fixed_table_plain(
+        jacobian_ops(curve.name).encode_points(pts), curve, window)
+    ntab = 1 << (window - 1)
+    assert model == [[(lf.decode(plain[i, v, 0:1])[0], lf.decode(plain[i, v, 1:2])[0])
+                      for v in range(ntab)] for i in range(len(pts))]
+    live = [i for i, P in enumerate(pts) if not P.is_inf]
+    assert [model[i] for i in live] == _mira_table(curve, [pts[i] for i in live],
+                                                   window, lf)
+    assert all(model[i] == [(0, 0)] * ntab for i in (5, 8, 9, 10, 11))
+
+
+@pytest.mark.parametrize("n", [1, 2, TABLE_BLOCK + 3])
+def test_table_model_kernel_block(n):
+    """At the kernel's own block: one lane, two, and a width that leaves a
+    second block of three lanes; the last lane the identity."""
+    curve = BN254_G1
+    rng = random.Random(n)
+    pts = [AffinePoint.random(curve, rng) for _ in range(n - 1)]
+    pts.append(AffinePoint.identity(curve))
+    model = fixed_table_model(pts, curve, 5)
+    lf = limb_field(curve.base_modulus)
+    plain = precompute_fixed_table_plain(
+        jacobian_ops(curve.name).encode_points(pts), curve, 5)
+    xs = lf.decode(plain[:, :, 0].reshape(-1, 8))
+    ys = lf.decode(plain[:, :, 1].reshape(-1, 8))
+    assert [c for row in model for c in row] == list(zip(xs, ys))
 
 
 @pytest.mark.parametrize("curve", CURVES, ids=IDS)

@@ -1,7 +1,11 @@
 """Port fold evaluator (plain version of csrc/fold_eval.cu) against
 mira_tpu's PallasFoldEvaluator run as plain jnp (impl="jnp"), on the
 circuits of tests/test_nifs.py at K=4: every fold point, plus the decider's
-single point j = 0.  Exact equality."""
+single point j = 0, and row ranges (a mesh rank's block; rotations wrap at
+the last row) against the same rows of the whole evaluation.  Exact
+equality."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -65,6 +69,58 @@ def test_fold_eval_all_points_vs_jnp(circuit_cls):
         [lf.encode(w) for w in Ws1], [lf.encode(w) for w in Ws2], js, ch1, ch2)
     M = _mira_structure(circuit_cls, 1)
     assert torch.equal(got, _reference(M, Ws1, Ws2, js, ch1, ch2))
+
+
+@functools.lru_cache(maxsize=None)
+def _whole(circuit_cls):
+    """(structure, inputs, js, the port's whole evaluation, mira_tpu's jnp
+    one) of a circuit at every fold point."""
+    S = CircuitRunner(K, circuit_cls(2), [], BN254_G1).collect_structure()
+    Ws1, Ws2, ch1, ch2 = _inputs(S, 11)
+    js = list(range(S.get_degree_for_folding()))
+    lf = limb_field(S.modulus)
+    W1, W2 = [lf.encode(w) for w in Ws1], [lf.encode(w) for w in Ws2]
+    whole = S.fold_evaluator("cpu").fold_eval_multi(W1, W2, js, ch1, ch2)
+    ref = _reference(_mira_structure(circuit_cls, 2), Ws1, Ws2, js, ch1, ch2)
+    return S, (W1, W2, ch1, ch2), js, whole, ref
+
+
+# K = 4: 16 rows.  Ends off any block, one row, the last rows (rotations
+# wrap), an empty range
+RANGES = [(0, 16), (3, 11), (5, 6), (9, 16), (15, 16), (7, 7)]
+
+
+@pytest.mark.parametrize("circuit_cls", CIRCUITS)
+@pytest.mark.parametrize("rows", RANGES, ids=lambda r: f"{r[0]}-{r[1]}")
+def test_row_range_vs_whole_and_jnp(circuit_cls, rows):
+    S, (W1, W2, ch1, ch2), js, whole, ref = _whole(circuit_cls)
+    lo, hi = rows
+    got = S.fold_evaluator("cpu").fold_eval_multi(W1, W2, js, ch1, ch2, rows=rows)
+    assert got.shape == (len(js), hi - lo, 8)
+    assert torch.equal(got, whole[:, lo:hi])
+    assert torch.equal(got, ref[:, lo:hi])
+
+
+def test_row_range_outside_raises():
+    S, (W1, W2, ch1, ch2), js, _, _ = _whole(MulCircuit)
+    for rows in ((-1, 4), (4, 17), (9, 8)):
+        with pytest.raises(ValueError, match="rows"):
+            S.fold_evaluator("cpu").fold_eval_multi(W1, W2, js, ch1, ch2, rows=rows)
+
+
+def test_block_from_registers():
+    """csrc/fold_eval.cu's rows per block: 128 while 128 rows of registers
+    and the program fit a block's shared memory (232,448 bytes), then 64,
+    then 32; past that the wrapper raises."""
+    assert fe.fold_eval_block(10, 146) == 128  # the k=17 primary circuit
+    assert fe.fold_eval_block(56, 146) == 128  # 56 * 4 KiB + 146 * 16 bytes
+    assert fe.fold_eval_block(57, 146) == 64
+    assert fe.fold_eval_block(113, 146) == 32
+    assert fe.fold_eval_block(224, 146) == 32
+    with pytest.raises(ValueError, match="shared memory"):
+        fe.fold_eval_block(225, 146)
+    with pytest.raises(ValueError, match="shared memory"):
+        fe.fold_eval_block(1, 14600)
 
 
 @pytest.mark.parametrize("circuit_cls", CIRCUITS)

@@ -179,6 +179,21 @@ def test_segment_runs_and_merge_levels():
             assert cuda_msm.bits_groups(c) * cuda_msm.RB_SPAN >= len(m)
 
 
+@pytest.mark.parametrize("n, nwin, fits", [
+    (1 << 24, 17, True),  # the widest commit of the paths, c = 16
+    ((1 << 31) - 1, 1, True),
+    (1 << 30, 2, False),  # exactly 2^31 records
+    (1 << 27, 17, False),  # the first power of two past the limit
+])
+def test_bucket_record_limit(n, nwin, fits):
+    """Kernel 1 counts records in 32 bits: n x nwin >= 2^31 raises."""
+    if fits:
+        cuda_msm.check_bucket_records(n, nwin)
+    else:
+        with pytest.raises(ValueError, match="2\\^31"):
+            cuda_msm.check_bucket_records(n, nwin)
+
+
 def test_reduce_scratch_counts_every_level():
     """reduce_tmp_points matches the levels of msm_common.cuh
     reduce_windows: nothing past one level, then nwin * ceil(n / 1024) per

@@ -145,8 +145,11 @@ def single_fold():
 def test_mesh_fold_matches_single_device_and_mira(mesh_out, single_fold):
     """Instance for instance and witness for witness: the mesh's SPS trace
     and fold (the same on every rank, checked inside) == the port's single
-    device fold (which satisfies is_sat_relaxed) == mira_tpu's."""
+    device fold (which satisfies is_sat_relaxed) == mira_tpu's.  Each rank
+    evaluated its block of the cross terms with the fold evaluator's row
+    range (the only evaluator its structure built)."""
     fold = mesh_out["fold"]
+    assert fold["evaluators"] == ["fold"]  # each rank's rows through FoldEvaluator
     assert fold["trace_u"] == single_fold["trace_u"] == single_fold["mira_trace_u"]
     for part in ("U", "W", "E"):
         assert fold["folded"][part] == single_fold["folded"][part], part

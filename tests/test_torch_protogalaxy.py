@@ -1,7 +1,7 @@
 """ProtoGalaxy on the port (mira_tpu_torch/nifs/protogalaxy.py) on the CPU:
 the five cases of tests/test_protogalaxy.py, and `prove`/`verify` through
 both packages on the same circuits, key and transcripts (K = 4, the TwoGate
-circuit, one and two incoming traces): the same poly_F, poly_K, betas, e and
+circuit, one and three incoming traces): the same poly_F, poly_K, betas, e and
 folded instance and witness, the accumulator and proof carried across in
 both directions, a nonzero F through both packages at delta = 0 (where the
 two definitions of compute_F coincide), and a second fold onto the result,
@@ -102,12 +102,23 @@ def test_nonzero_f_matches_mira_at_delta_zero(which):
         pp, _ = ProtoGalaxy.setup_params(AffinePoint.generator(BN254_G1), S)
         acc = ProtoGalaxy.new_accumulator(S, pp, create_ro(BN254_FQ), "cpu")
         new_acc, _ = ProtoGalaxy.prove(ck, pp, create_ro(BN254_FQ), acc,
-                                       [trace, make_trace(5)[2]])
+                                       [trace, make_trace(5)[2], make_trace(6)[2]])
         rel, betas = new_acc.trace, new_acc.betas
     mine = ProtoGalaxy.compute_F(betas, 0, S, rel)
     theirs = MiraPG.compute_F(betas, 0, S_m, relaxed_trace_to_mira(rel))
     assert any(c != 0 for c in mine)
     assert list(mine.coeffs) == list(theirs.coeffs)
+
+
+def test_prove_rejects_two_traces():
+    """L + 1 must be a power of two: two incoming traces raise before any
+    transcript is touched."""
+    S, ck, trace = make_trace(4)
+    pp, _ = ProtoGalaxy.setup_params(AffinePoint.generator(BN254_G1), S)
+    acc = ProtoGalaxy.new_accumulator(S, pp, create_ro(BN254_FQ), "cpu")
+    with pytest.raises(ValueError, match="power of two"):
+        ProtoGalaxy.prove(ck, pp, create_ro(BN254_FQ), acc,
+                          [trace, make_trace(5)[2]])
 
 
 def test_zero_g_for_satisfied_traces():
@@ -143,11 +154,11 @@ def _same_accumulator(mine, theirs):
     assert torch.equal(mine.trace.W.E, limbs16_to_words(np.asarray(theirs.trace.W.E)))
 
 
-@pytest.mark.parametrize("incoming", [1, 2], ids=["one-trace", "two-traces"])
+@pytest.mark.parametrize("incoming", [1, 3], ids=["one-trace", "three-traces"])
 def test_prove_and_verify_match_mira(incoming):
     """The same seeds through both packages.  The traces share one running
     NARK transcript, which the verifier replays in the same order."""
-    seeds = [4, 5][:incoming]
+    seeds = [4, 5, 6][:incoming]
     ro_t, ro_m = create_ro(BN254_FQ), mira_ro(BN254_FQ)
     S, ck, _ = make_trace(seeds[0])
     traces = [make_trace(s, ro_t)[2] for s in seeds]
