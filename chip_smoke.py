@@ -45,7 +45,10 @@ generic-base MSM engines (kernels 4-7):
   at a few hundred points on both curves, and timed at the mesh path's
   widths on BN254: 2^17 (the cross-term width; against one result of the
   bucket MSM's plain version) and 2^21 (the SPS commit width; against the
-  bucket kernel and the host MSM);
+  bucket kernel and the host MSM); kernels 4 and 5 also per phase (table,
+  recode, accumulate, finish), with the peak scratch of a call, at 2^21 in
+  chunks of 2^18, 2^19 and 2^20 bases, and against the host MSM at one
+  base either side of their chunk and at three chunks;
 - the k=17 path's decider, verify(strict=True), once per engine of
   kernels 5-7 (CommitmentKey.generic_method), so that each engine's kernel
   makes the decider's commitments;
@@ -62,16 +65,18 @@ generic-base MSM engines (kernels 4-7):
 The two MSMs of the main path, kernels 1 and 3, are also held to their
 plain versions and the host MSM on the edge cases of kernel 1's sorted
 layout (all-equal, zero and small scalars, r - 1, duplicate and opposite
-bases, identity lanes) at N = 1, 2, 255 (those plain versions run on the
-CPU in worker processes beside the other checks), and timed per phase (their C calls:
-sort or recode, accumulate, reduce, finish); kernel 1 also at 2^21.  The
-table build (kernel 3b) is held to its plain version at N = 1, 2, 255 and
-at a width of three blocks and five lanes whose blocks hold no, one and
-only identity lanes; the fold evaluator (kernel 2) on every row and on row
+bases, identity lanes) at N = 1, 2, 255, and so are kernels 4 and 5, also
+in chunks of 128 bases at 127, 128, 129 and 384 bases with digit 16 and its
+carry (those plain versions run on the CPU in worker processes beside the
+other checks).  Kernels 1 and 3 are timed per phase (their C calls: sort or
+recode, accumulate, reduce, finish); kernel 1 also at 2^21.  The table
+build (kernel 3b) is held to its plain version at N = 1, 2, 255 and at a
+width of three blocks and five lanes whose blocks hold no, one and only
+identity lanes; the fold evaluator (kernel 2) on every row and on row
 ranges (ends off the block, one row, the last rows).  Where a copy of the
-previous sources (commit 2f5ff22) lies at PREV_CSRC (git-ignored), their
-designs of kernels 3b and 2 are built beside this tree's and timed in turns
-with them.
+previous sources (commit 9e88700) lies at PREV_CSRC (git-ignored), their
+design of kernels 4 and 5 is built beside this tree's and timed in turns
+with it.
 
 Kernel launches are counted over each path.  The keys of both paths come
 from one background thread started right after the build (the native
@@ -122,7 +127,18 @@ ENGINES = {
     "window": ("msm_window", "msm_lane.cu", "mira_tpu/ops/pallas_msm.py:108"),
     "lane": ("msm_lane", "msm_lane.cu", "mira_tpu/ops/pallas_msm.py:862"),
 }
+PIPPENGER_METHODS = ("pippenger", "pippenger-u4")
 ENGINE_REPS = {"pippenger": 5, "pippenger-u4": 5, "window": 3, "lane": 2}
+# kernels 4 and 5 run the code of kernels 3b and 3 over chunks of bases
+PIPPENGER_SOURCES = ["mira_tpu_torch/csrc/msm_pippenger.cu",
+                     "mira_tpu_torch/csrc/fixed_table.cu",
+                     "mira_tpu_torch/csrc/msm_fixed.cu",
+                     "mira_tpu_torch/csrc/msm_common.cuh"]
+PIPPENGER_CHUNKS = (1 << 18, 1 << 19, 1 << 20)  # chunk sizes timed at 2^21
+# kernels 4 and 5's edge cases in chunks of this many bases (their plain
+# versions run on the CPU): one base either side of a chunk, three chunks
+PIPPENGER_EDGE_CHUNK = 128
+PIPPENGER_EDGE_WIDTHS = (127, 128, 129, 384)
 # the engines whose path is the k=17 decider (kernel 4's is the mesh path)
 DECIDER_ENGINES = ("pippenger-u4", "window", "lane")
 
@@ -227,8 +243,9 @@ def msm_fixed_bound(n: int, window: int, curve) -> dict:
 
 def timed_phases(torch, phases, reps: int) -> dict:
     """Milliseconds of each phase of a kernel split into its C calls
-    (ops/cuda_msm.py `bucket_phases`, `fixed_phases`): CUDA events between
-    the calls, the mean over `reps` runs after one warm run."""
+    (ops/cuda_msm.py `bucket_phases`, `fixed_phases`, `pippenger_phases`):
+    CUDA events between the calls, the mean over `reps` runs after one warm
+    run; a phase named more than once (one per chunk of bases) is summed."""
     from mira_tpu_torch import _build
 
     def run_all(marks):
@@ -246,73 +263,92 @@ def timed_phases(torch, phases, reps: int) -> dict:
         run_all(marks)
         runs.append(marks)
     torch.cuda.synchronize()
-    return {name: sum(m[i].elapsed_time(m[i + 1]) for m in runs) / reps
-            for i, (name, _) in enumerate(phases)}
+    out = {}
+    for i, (name, _) in enumerate(phases):
+        out[name] = out.get(name, 0.0) + sum(
+            m[i].elapsed_time(m[i + 1]) for m in runs) / reps
+    return out
 
 
-# The previous designs of kernels 3b and 2 (commit 2f5ff22), for a paired
-# timing where a copy of their sources lies in the repository's ignored
-# build directory: unpack `git archive 2f5ff22 mira_tpu_torch/csrc` into
+def peak_bytes(torch, fn) -> int:
+    """Device bytes that one call of `fn` allocates at its peak, beyond
+    what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+# The previous design of kernels 4 and 5 (commit 9e88700: a thread per chunk
+# of points with a table of 16 XYZZ multiples in local memory and full
+# additions into window accumulators in device memory), for a paired timing
+# where a copy of its sources lies in the repository's ignored build
+# directory: unpack `git archive 9e88700 mira_tpu_torch/csrc` into
 # mira_tpu_torch/build/prev.
 PREV_CSRC = os.path.join("mira_tpu_torch", "build", "prev", "mira_tpu_torch", "csrc")
+PREV_COMMIT = "9e88700"
 
 
 def prev_kernels(root: str):
-    """{"fixed_table": fn(points, curve, window), "fold_eval": fn(lf, ops_t,
-    n_regs, stat, w1, w2, ch, jm, consts)} of the previous sources under
-    PREV_CSRC, built by nvcc into their own library, or None when that copy
-    is absent.  Their C interfaces as they were: one thread a lane with its
-    own inversion, and a register file in device memory over whole
-    columns."""
+    """{"msm_pippenger": fn(scalars, points, curve, signed)} of the previous
+    sources under PREV_CSRC, built by nvcc into their own library, or None
+    when that copy is absent.  Its C interface as it was: min(32,768, N / 4)
+    threads, the (nwin, threads) window accumulators and the reduce's
+    levels in the caller's scratch, and the signed digits' carry thresholds
+    (`carry_thresholds`)."""
     import ctypes
 
+    import numpy as np
     import torch
 
     from mira_tpu_torch import _build
     from mira_tpu_torch.fields.limbs import NUM_WORDS
+    from mira_tpu_torch.ops import cuda_msm
+    from mira_tpu_torch.ops.msm import PIPPENGER_WINDOW, pippenger_windows
 
     src = os.path.join(root, PREV_CSRC)
     if not os.path.isdir(src):
         return None
-    so = os.path.join(_build.BUILD, "libprev_kernels.so")
+    so = os.path.join(_build.BUILD, "libprev_pippenger.so")
     if not os.path.exists(so):
         os.makedirs(_build.BUILD, exist_ok=True)
-        report = _build._build(so, [os.path.join(src, f) for f in ("fixed_table.cu",
-                                                                   "fold_eval.cu")])
+        report = _build._build(so, [os.path.join(src, "msm_pippenger.cu")])
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  previous ptxas: {line.strip()}")
     lib = ctypes.CDLL(so)
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.mira_fixed_table.argtypes = [I_, P_, P_, P_, I_, I_, P_, P_]
-    lib.mira_fold_eval.argtypes = [I_, P_, I_, P_, P_, P_, P_, I_, P_, I_, P_, I_,
-                                   P_, P_, P_]
-    lib.mira_fixed_table.restype = lib.mira_fold_eval.restype = I_
+    lib.mira_msm_pippenger.argtypes = [I_, I_, P_, P_, P_, P_, I_, I_, I_, P_, P_,
+                                       P_, P_, P_, P_]
+    lib.mira_msm_pippenger.restype = I_
+    thresholds = {}
 
-    def fixed_table(points, curve, window):
+    def msm_pippenger(scalars, points, curve, signed):
         X, Y, Z = points
-        n, dev = X.shape[0], X.device
-        tab = torch.empty(n, 1 << (window - 1), 2, NUM_WORDS, dtype=torch.int32,
-                          device=dev)
-        _build.check(lib.mira_fixed_table(
-            _build.field_id(curve.base_modulus), X.data_ptr(), Y.data_ptr(),
-            Z.data_ptr(), n, window, tab.data_ptr(), _build.stream_ptr(dev)),
-            "previous fixed_table")
-        return tab
+        n, dev = scalars.shape[0], scalars.device
+        nwin = pippenger_windows(curve.scalar_modulus.bit_length(), signed)
+        nchunks = max(1, min(32768, -(-n // 4)))
+        if signed and nwin not in thresholds:
+            thresholds[nwin] = torch.from_numpy(cuda_msm.carry_thresholds(
+                nwin, PIPPENGER_WINDOW).view(np.int32)).to(dev)
+        thr = thresholds[nwin] if signed else scalars
 
-    def fold_eval(lf, ops_t, n_regs, stat, w1, w2, ch, jm, consts):
-        n_j, nrow, dev = jm.shape[0], stat.shape[1], stat.device
-        regs = torch.empty(n_regs, nrow, NUM_WORDS, dtype=torch.int32, device=dev)
-        out = torch.empty(n_j, nrow, NUM_WORDS, dtype=torch.int32, device=dev)
-        _build.check(lib.mira_fold_eval(
-            _build.field_id(lf.modulus), ops_t.data_ptr(), ops_t.shape[0],
-            stat.data_ptr(), w1.data_ptr(), w2.data_ptr(), ch.data_ptr(),
-            ch.shape[1], jm.data_ptr(), n_j, consts.data_ptr(), nrow,
-            regs.data_ptr(), out.data_ptr(), _build.stream_ptr(dev)),
-            "previous fold_eval")
-        return out
+        def xyzz(m):
+            return torch.empty(max(1, m), 4 * NUM_WORDS, dtype=torch.int32, device=dev)
 
-    return {"fixed_table": fixed_table, "fold_eval": fold_eval}
+        acc, ws = xyzz(nwin * nchunks), xyzz(nwin)
+        partial = xyzz(cuda_msm.reduce_tmp_points(nwin, nchunks))
+        out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
+        ptr = torch.Tensor.data_ptr
+        _build.check(lib.mira_msm_pippenger(
+            _build.field_id(curve.base_modulus), int(signed), ptr(scalars), ptr(X),
+            ptr(Y), ptr(Z), n, nwin, nchunks, ptr(thr), ptr(acc), ptr(partial),
+            ptr(ws), ptr(out), _build.stream_ptr(dev)), "previous msm_pippenger")
+        return (out[0], out[1], out[2])
+
+    return {"msm_pippenger": msm_pippenger}
 
 
 def fixed_table_products(n: int, window: int, curve) -> dict:
@@ -649,6 +685,131 @@ def check_msm_layout_cases(torch, dev, jobs):
     return err
 
 
+def pippenger_border_input(curve, n, rng):
+    """Kernels 4 and 5's input at a chunk border: `adversarial_input` (bases
+    repeated, an identity lane last) with scalars 0, 1, r - 1, 16 (signed
+    digit -16 with a carry), 16 in every 5-bit window and 2^250 - 1, and an
+    opposite pair split between the two halves."""
+    sc, pts = adversarial_input(curve, n, rng)
+    r = curve.scalar_modulus
+    every = sum(16 << (5 * k) for k in range(50)) % r
+    sc[:6] = [0, 1, r - 1, 16, every, (1 << 250) - 1]
+    pts[n // 2] = pts[1].neg()
+    return sc, pts
+
+
+def pippenger_input(curve, n, case, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if case == "border":
+        return pippenger_border_input(curve, n, rng)
+    return layout_case(curve, n, case, rng)
+
+
+def pippenger_plain(curve_name: str, n: int, case: str, seed: int) -> dict:
+    """The plain side of `check_pippenger_edges` for one input, on the CPU
+    in a worker process: the host MSM and the plain versions of kernels 4
+    (True) and 5 (False)."""
+    import torch
+
+    from mira_tpu_torch.convert import msm_reference
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
+    from mira_tpu_torch.curves.torch_curve import jacobian_ops
+    from mira_tpu_torch.ops.msm import encode_scalars, msm_pippenger_plain
+
+    torch.set_num_threads(1)
+    curve = {"bn254": BN254_G1, "grumpkin": GRUMPKIN}[curve_name]
+    sc, pts = pippenger_input(curve, n, case, seed)
+    s = encode_scalars(sc, curve.scalar_modulus)
+    P = jacobian_ops(curve_name).encode_points(pts)
+    out = {"host": point_ints(msm_reference(s, P, curve))}
+    for signed in (True, False):
+        out[signed] = point_ints(decode_one(curve, msm_pippenger_plain(s, P, curve,
+                                                                      signed)))
+    return out
+
+
+def submit_pippenger_plain(pool, rng) -> dict:
+    """`pippenger_plain` on `pool` for each curve: the layout's edge cases at
+    N = 1, 2, 255, and `pippenger_border_input` at PIPPENGER_EDGE_WIDTHS.
+    {(curve name, n, case): (seed, async result)}."""
+    jobs = {}
+    for curve_name in ("bn254", "grumpkin"):
+        inputs = [(n, case) for n in (255, 2, 1) for case in LAYOUT_CASES]
+        inputs += [(n, "border") for n in PIPPENGER_EDGE_WIDTHS]
+        for n, case in inputs:
+            seed = int(rng.integers(1 << 30))
+            jobs[(curve_name, n, case)] = (seed, pool.apply_async(
+                pippenger_plain, (curve_name, n, case, seed)))
+    return jobs
+
+
+def check_pippenger_edges(torch, dev, jobs):
+    """Kernels 4 and 5 against their plain versions (computed on the CPU by
+    `submit_pippenger_plain`, on the same inputs) and the host MSM: the
+    layout's edge cases (identity lanes, duplicate and opposite bases, zero
+    scalars, r - 1) at N = 1, 2, 255 in one chunk, and in chunks of
+    PIPPENGER_EDGE_CHUNK bases one base either side of a chunk and three
+    chunks, with digit 16 and its carry.  Returns the largest |kernel -
+    plain| (0)."""
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
+    from mira_tpu_torch.curves.torch_curve import jacobian_ops
+    from mira_tpu_torch.ops import cuda_msm
+    from mira_tpu_torch.ops.msm import encode_scalars
+
+    err = 0
+    for (curve_name, n, case), (seed, job) in jobs.items():
+        curve = {"bn254": BN254_G1, "grumpkin": GRUMPKIN}[curve_name]
+        want = job.get()
+        sc, pts = pippenger_input(curve, n, case, seed)
+        s = encode_scalars(sc, curve.scalar_modulus, dev)
+        P = jacobian_ops(curve_name).encode_points(pts, dev)
+        chunk = PIPPENGER_EDGE_CHUNK if case == "border" else cuda_msm.PIPPENGER_CHUNK
+        for signed in (True, False):
+            got = point_ints(decode_one(curve, cuda_msm.msm_pippenger_cuda(
+                s, P, curve, signed, chunk)))
+            e = max_abs_err(got, want[signed])
+            err = max(err, e)
+            if e or got != want["host"]:
+                raise AssertionError(f"msm_pippenger signed={signed} {case} n={n} "
+                                     f"chunk={chunk} on {curve.name}: kernel != "
+                                     "plain or host")
+    log(f"msm_pippenger, msm_pippenger_u4 on {list(LAYOUT_CASES)} at n = 1, 2, "
+        f"255 and at n = {list(PIPPENGER_EDGE_WIDTHS)} in chunks of "
+        f"{PIPPENGER_EDGE_CHUNK} (digit 16 with its carry, opposite bases across "
+        "a border): kernel == plain (on the CPU) == host on both curves (exact)")
+    return err
+
+
+def check_pippenger_chunks(torch, dev, rng, ck, chunk):
+    """Kernels 4 and 5 at `chunk` - 1, `chunk` and `chunk` + 1 bases and at
+    three chunks against the host MSM, over the key's points (repeated past
+    its width).  Returns the largest |kernel - host| (0)."""
+    from mira_tpu_torch.convert import msm_reference
+    from mira_tpu_torch.ops import cuda_msm
+
+    curve = ck.curve
+    err = 0
+    for n in (chunk - 1, chunk, chunk + 1, 3 * chunk):
+        keys = ck._enc_slice(min(n, len(ck)))
+        idx = torch.arange(n, device=dev) % keys[0].shape[0]
+        P = tuple(c[idx].contiguous() for c in keys)
+        s = _random_plain(rng, n, dev)
+        ref = point_ints(msm_reference(s, P, curve))
+        for signed in (True, False):
+            got = point_ints(decode_one(curve, cuda_msm.msm_pippenger_cuda(
+                s, P, curve, signed, chunk)))
+            err = max(err, max_abs_err(got, ref))
+            if err:
+                raise AssertionError(f"msm_pippenger signed={signed} n={n} "
+                                     f"chunk={chunk}: kernel != host")
+    log(f"msm_pippenger, msm_pippenger_u4 at n = {chunk - 1}, {chunk}, "
+        f"{chunk + 1}, {3 * chunk} in chunks of {chunk} on {curve.name}: kernel "
+        "== host (exact)")
+    return err
+
+
 def decode_one(curve, out):
     from mira_tpu_torch.curves.torch_curve import jacobian_ops
 
@@ -805,14 +966,14 @@ def reset_launch_counts():
     cuda_poseidon.launches = 0
 
 
-def fixed_checks(torch, dev, rng, ck, shapes, path, prev=None):
+def fixed_checks(torch, dev, rng, ck, shapes, path):
     """`fixed_timings` at every (lanes, window) in `shapes`, the tables
     that `ck` built on `path`, over its first key points; returns the two
     lists of results (msm_fixed, fixed_table)."""
     msms, tables = [], []
     for n, window in shapes:
         m, t = fixed_timings(torch, dev, rng, ck.curve,
-                             ck._encode_rows(ck._limbs[:n]), window, prev=prev)
+                             ck._encode_rows(ck._limbs[:n]), window)
         msms.append({"path": path, "curve": ck.curve.name, **m})
         tables.append({"path": path, "curve": ck.curve.name, **t})
     return msms, tables
@@ -828,12 +989,10 @@ def paired(fn_new, fn_old, reps):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
-def fixed_timings(torch, dev, rng, curve, points, window, reps=5, prev=None):
+def fixed_timings(torch, dev, rng, curve, points, window, reps=5):
     """Kernel and plain times of the table build and of the fixed-base MSM
     over `points` at `window`, random canonical scalars, and the MSM's
-    per-phase times; both kernels must equal their plain versions.  With
-    `prev` (`prev_kernels`), the previous design of the table build is
-    timed in turns with this one and must agree with it."""
+    per-phase times; both kernels must equal their plain versions."""
     from mira_tpu_torch.ops import cuda_msm
     from mira_tpu_torch.ops.msm import msm_fixed_plain, precompute_fixed_table_plain
 
@@ -847,14 +1006,6 @@ def fixed_timings(torch, dev, rng, curve, points, window, reps=5, prev=None):
     if tab_err:
         raise AssertionError(f"fixed_table n={n} w={window}: kernel != plain")
     del plain_tab
-    tab_prev, extra = {}, ""
-    if prev is not None:
-        if not torch.equal(prev["fixed_table"](points, curve, window), tab):
-            raise AssertionError(f"fixed_table n={n} w={window}: != the previous kernel")
-        new_ms, old_ms = paired(lambda: cuda_msm.fixed_table_cuda(points, curve, window),
-                                lambda: prev["fixed_table"](points, curve, window), reps)
-        tab_prev = {"paired_ms": new_ms, "prev_ms": old_ms}
-        extra = f", paired with the previous design's {new_ms:.3f} vs {old_ms:.3f} ms"
     s = _random_plain(rng, n, dev)
     ms = timed_cuda(lambda: cuda_msm.msm_fixed_cuda(s, tab, curve, window), reps)
     phases = timed_phases(torch, cuda_msm.fixed_phases(s, tab, curve, window)[0], reps)
@@ -866,7 +1017,7 @@ def fixed_timings(torch, dev, rng, curve, points, window, reps=5, prev=None):
     routes = {k: round(v["bound_ms"], 3)
               for k, v in fixed_table_route_bounds(n, window, curve).items()}
     log(f"n={n} w={window} {curve.name}: fixed_table {tab_ms:.3f} ms (plain "
-        f"{tab_plain_ms:.3f} ms{extra}; bound by route {json.dumps(routes)} ms), "
+        f"{tab_plain_ms:.3f} ms; bound by route {json.dumps(routes)} ms), "
         f"msm_fixed {ms:.3f} ms (plain {plain_ms:.3f} ms; phases "
         f"{json.dumps({k: round(v, 3) for k, v in phases.items()})}; a generic-base "
         f"MSM's bound {msm_bucket_bound(n, curve)['bound_ms']:.3f} ms)")
@@ -874,7 +1025,7 @@ def fixed_timings(torch, dev, rng, curve, points, window, reps=5, prev=None):
              "phases_ms": phases,
              "max_abs_err": err, **msm_fixed_bound(n, window, curve)},
             {"n": n, "window": window, "ms": tab_ms, "plain_ms": tab_plain_ms,
-             **tab_prev, "max_abs_err": tab_err, **fixed_table_bound(n, window, curve)})
+             "max_abs_err": tab_err, **fixed_table_bound(n, window, curve)})
 
 
 def run_snarkstar(torch, dev):
@@ -1453,13 +1604,47 @@ def check_msm_engines_small(torch, dev, rng):
         "plain == host on both curves (exact)")
 
 
-def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21):
+def pippenger_timings(torch, method, s, P, curve, reps, prev, chunks=()):
+    """Kernel 4 or 5 beyond its time: its per-phase times (table, recode,
+    accumulate, finish, summed over the chunks), the peak scratch of one
+    call, with `prev` its previous design's time in turns with it (which
+    must agree), and its time and scratch at each chunk size of `chunks`."""
+    from mira_tpu_torch.ops import cuda_msm
+
+    signed = method == "pippenger"
+    out = {"chunk": cuda_msm.PIPPENGER_CHUNK,
+           "phases_ms": timed_phases(
+               torch, cuda_msm.pippenger_phases(s, P, curve, signed)[0], reps),
+           "scratch_bytes": peak_bytes(
+               torch, lambda: cuda_msm.msm_pippenger_cuda(s, P, curve, signed))}
+    if prev is not None:
+        old = prev["msm_pippenger"](s, P, curve, signed)
+        new = cuda_msm.msm_pippenger_cuda(s, P, curve, signed)
+        if point_ints(decode_one(curve, old)) != point_ints(decode_one(curve, new)):
+            raise AssertionError(f"{method} n={s.shape[0]}: != the previous kernel")
+        out["paired_ms"], out["prev_ms"] = paired(
+            lambda: cuda_msm.msm_pippenger_cuda(s, P, curve, signed),
+            lambda: prev["msm_pippenger"](s, P, curve, signed), reps)
+    if chunks:
+        out["chunk_ms"] = {str(c): timed_cuda(lambda: cuda_msm.msm_pippenger_cuda(
+            s, P, curve, signed, c), 3) for c in chunks}
+        out["chunk_scratch_bytes"] = {str(c): peak_bytes(
+            torch, lambda: cuda_msm.msm_pippenger_cuda(s, P, curve, signed, c))
+            for c in chunks}
+    return out
+
+
+def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21,
+                   prev=None):
     """Kernels 4-7 at the mesh path's widths on BN254: at 2^17 (the
     cross-term width) held against `want17`, the bucket MSM's plain version
     on the same inputs (computed once), and each timed against its own plain
     version; at 2^21 (the SPS commit width, the key's points) against
     `host21`, the host MSM of (s21, P21), which the bucket kernel equals.
-    Returns {method: [entry at 2^17, entry at 2^21]}."""
+    Kernels 4 and 5 also per phase, with their peak scratch, their previous
+    design (`prev`) in turns with them, and at 2^21 per chunk size
+    (`pippenger_timings`).  Returns {method: [entry at 2^17, entry at
+    2^21]}."""
     from mira_tpu_torch.ops.msm import msm, plain_engine
 
     curve = ck.curve
@@ -1473,12 +1658,16 @@ def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21):
         err = max(err, max_abs_err(point_ints(decode_one(curve, plain)), want))
         if err:
             raise AssertionError(f"{method} 2^17: kernel or plain != msm_plain")
+        extra = {}
+        if method in PIPPENGER_METHODS:
+            extra = pippenger_timings(torch, method, s17, P17, curve,
+                                      ENGINE_REPS[method], prev)
         out[method].append({"n": 1 << 17, "ms": ms, "plain_ms": plain_ms,
                             "bucket_plain_ms": plain17_ms, "max_abs_err": err,
-                            **msm_bucket_bound(1 << 17, curve)})
+                            **msm_bucket_bound(1 << 17, curve), **extra})
         log(f"{method} 2^17: {ms:.3f} ms (plain {plain_ms:.1f} ms); == the "
             "bucket MSM's plain version; bound "
-            f"{out[method][-1]['bound_ms']:.3f} ms")
+            f"{out[method][-1]['bound_ms']:.3f} ms{_pippenger_note(extra)}")
     n, s, P, host = 1 << 21, s21, P21, host21
     for method in ENGINES:
         ms = timed_cuda(lambda: msm(s, P, curve, method), ENGINE_REPS[method])
@@ -1486,11 +1675,31 @@ def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21):
                           host)
         if err:
             raise AssertionError(f"{method} 2^21: kernel != bucket kernel == host")
+        extra = {}
+        if method in PIPPENGER_METHODS:
+            extra = pippenger_timings(torch, method, s, P, curve,
+                                      ENGINE_REPS[method], prev, PIPPENGER_CHUNKS)
         out[method].append({"n": n, "ms": ms, "plain_ms": None, "max_abs_err": err,
-                            **msm_bucket_bound(n, curve)})
+                            **msm_bucket_bound(n, curve), **extra})
         log(f"{method} 2^21: {ms:.3f} ms; == bucket kernel == host MSM; bound "
-            f"{out[method][-1]['bound_ms']:.3f} ms")
+            f"{out[method][-1]['bound_ms']:.3f} ms{_pippenger_note(extra)}")
     return out
+
+
+def _pippenger_note(extra: dict) -> str:
+    if not extra:
+        return ""
+    note = (f"; chunk {extra['chunk']}, phases "
+            f"{json.dumps({k: round(v, 3) for k, v in extra['phases_ms'].items()})}"
+            f", peak scratch {extra['scratch_bytes'] / 2**20:.1f} MiB")
+    if "prev_ms" in extra:
+        note += (f"; paired with the previous design's {extra['paired_ms']:.3f} "
+                 f"vs {extra['prev_ms']:.3f} ms")
+    if "chunk_ms" in extra:
+        mib = {k: round(v / 2**20, 1) for k, v in extra["chunk_scratch_bytes"].items()}
+        note += (f"; by chunk size (ms) {json.dumps(extra['chunk_ms'])}, scratch "
+                 f"(MiB) {json.dumps(mib)}")
+    return note
 
 
 def run_engine_deciders(torch, ivc):
@@ -1671,7 +1880,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     prev = prev_build.result()
-    log(f"previous kernels 3b and 2 for the paired timing: "
+    log(f"previous kernels 4 and 5 (commit {PREV_COMMIT}) for the paired timing: "
         f"{'built from ' + PREV_CSRC if prev else 'no copy at ' + PREV_CSRC + ', not timed'}")
     phase("build", t0)
     # the keys after the build, whose nvcc processes want every core: the
@@ -1682,10 +1891,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     small = {}
-    # the layout cases' plain versions in CPU worker processes, stopped on
-    # leaving the block whatever happens
+    # the edge cases' plain versions in CPU worker processes (kernels 1, 3
+    # and 3b's first, then kernels 4 and 5's, which finish during the NTT
+    # and Poseidon paths), stopped on leaving the block whatever happens
     with multiprocessing.get_context("spawn").Pool(LAYOUT_WORKERS) as pool:
         jobs = submit_layout_plain(pool, rng)
+        pippenger_jobs = submit_pippenger_plain(pool, rng)
         for check in (check_field_kernels, check_msm_small, check_fixed_small,
                       check_table_edges, check_ntt_small, check_poseidon_small,
                       check_msm_engines_small, check_msm_layout_cases):
@@ -1693,26 +1904,31 @@ def main() -> int:
             small[check.__name__] = check(
                 torch, dev, jobs if check is check_msm_layout_cases else rng)
             log(f"  {check.__name__}: {time.perf_counter() - t1:.1f} s")
-    layout_err = small["check_msm_layout_cases"]
-    table_err = small["check_table_edges"]
-    phase("kernel_checks_small", t0)
+        layout_err = small["check_msm_layout_cases"]
+        table_err = small["check_table_edges"]
+        phase("kernel_checks_small", t0)
 
-    # -- the NTT and Poseidon paths need no key: they run while the keys are made
-    t0 = time.perf_counter()
-    reset_launch_counts()
-    ntt_four, ntt_stage = run_ntt_path(torch, dev, rng)
-    ntt_counts = launch_counts()
-    log(f"launches over the NTT path: {ntt_counts}")
-    require_launched(ntt_counts, ("ntt_fourstep", "ntt_stage"), "the NTT path")
-    phase("ntt_path", t0)
+        # -- the NTT and Poseidon paths need no key: they run while the keys
+        # are made
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        ntt_four, ntt_stage = run_ntt_path(torch, dev, rng)
+        ntt_counts = launch_counts()
+        log(f"launches over the NTT path: {ntt_counts}")
+        require_launched(ntt_counts, ("ntt_fourstep", "ntt_stage"), "the NTT path")
+        phase("ntt_path", t0)
 
-    t0 = time.perf_counter()
-    reset_launch_counts()
-    poseidon_at = run_poseidon_path(torch, dev, rng)
-    poseidon_counts = launch_counts()
-    log(f"launches over the Poseidon path: {poseidon_counts}")
-    require_launched(poseidon_counts, ("poseidon",), "the Poseidon path")
-    phase("poseidon_path", t0)
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        poseidon_at = run_poseidon_path(torch, dev, rng)
+        poseidon_counts = launch_counts()
+        log(f"launches over the Poseidon path: {poseidon_counts}")
+        require_launched(poseidon_counts, ("poseidon",), "the Poseidon path")
+        phase("poseidon_path", t0)
+
+        t0 = time.perf_counter()
+        pippenger_err = check_pippenger_edges(torch, dev, pippenger_jobs)
+        phase("pippenger_edge_cases", t0)
 
     t0 = time.perf_counter()
     for (_, k, label), fut in zip(key_specs[:2], keygen):
@@ -1837,27 +2053,16 @@ def main() -> int:
     ms_one = timed_cuda(lambda: fe.fold_eval_cuda(
         ev.lf, ops_t, n_regs, ev.static_stack, w1, w2, ch[1:2], jm[1:2], consts), 5)
     reread = (n_pts - 1) * (ev.static_stack.shape[0] + 2 * w1.shape[0]) * 32 << K
-    fe_prev, extra = {}, ""
-    if prev is not None:
-        old = prev["fold_eval"](ev.lf, ops_t, n_regs, ev.static_stack, w1, w2,
-                                ch[jsel], jm[jsel], consts)
-        if not torch.equal(old, run_kernel()):
-            raise AssertionError("fold_eval: != the previous kernel")
-        new_ms, old_ms = paired(run_kernel, lambda: prev["fold_eval"](
-            ev.lf, ops_t, n_regs, ev.static_stack, w1, w2, ch[jsel], jm[jsel],
-            consts), 5)
-        fe_prev = {"paired_ms": new_ms, "prev_ms": old_ms}
-        extra = f"; paired with the previous design's {new_ms:.3f} vs {old_ms:.3f} ms"
     log(f"fold_eval 2^{K} rows x {n_pts} points: {ms_k:.3f} ms (one point "
         f"{ms_one:.3f} ms; the rereads {reread / 1e9:.3f} GB, "
         f"{reread / MEM_BYTES_PER_S * 1e3:.3f} ms at the device-memory rate; plain "
-        f"{ms_p:.1f} ms{extra})")
+        f"{ms_p:.1f} ms)")
     kernels.append({
         "name": "fold_eval", "route": "cuda",
         "source": "mira_tpu_torch/csrc/fold_eval.cu",
         "replaces": "mira_tpu/polynomial/pallas_evaluator.py:323",
         "launches": counts["fold_eval"], "max_abs_err": err,
-        "ms": ms_k, "plain_ms": ms_p, **fe_prev, "ms_one_point": ms_one,
+        "ms": ms_k, "plain_ms": ms_p, "ms_one_point": ms_one,
         **fold_eval_bound(fops, ev.static_stack.shape[0], w1.shape[0], 1 << K,
                           n_pts),
         "library_ms": None,
@@ -1874,8 +2079,7 @@ def main() -> int:
     msm_at, tab_at = [], []
     for ck in (ck1, ck2):
         for shapes, path in ((ck.table_shapes(), f"k={K}"), (early, "snarkstar")):
-            m, t = fixed_checks(torch, dev, rng, ck, shapes, path,
-                                prev if path == f"k={K}" else None)
+            m, t = fixed_checks(torch, dev, rng, ck, shapes, path)
             msm_at += m
             tab_at += t
     head = msm_at[0]  # the BN254 delta commit's
@@ -1898,7 +2102,6 @@ def main() -> int:
         "launches": counts["fixed_table"],
         "max_abs_err": max([table_err] + [t["max_abs_err"] for t in tab_at]),
         "ms": tab_at[0]["ms"], "plain_ms": tab_at[0]["plain_ms"],
-        **{k: tab_at[0][k] for k in ("paired_ms", "prev_ms") if k in tab_at[0]},
         "bound_ms": tab_at[0]["bound_ms"], "bound_by": tab_at[0]["bound_by"],
         "bound_route": tab_at[0]["bound_route"],
         "library_ms": None,
@@ -1909,7 +2112,9 @@ def main() -> int:
     # -- kernels 4-7: timings at the mesh path's widths, their paths ----------
     t0 = time.perf_counter()
     engine_at = engine_timings(torch, ck1, s, P, bucket_plain17,
-                               bucket_plain17_ms, s21, P21, host21)
+                               bucket_plain17_ms, s21, P21, host21, prev)
+    pippenger_err = max(pippenger_err, check_pippenger_chunks(
+        torch, dev, rng, ck1, cuda_msm.PIPPENGER_CHUNK))
     phase("msm_engine_timing", t0)
     t0 = time.perf_counter()
     deciders = run_engine_deciders(torch, ivc)
@@ -1931,21 +2136,30 @@ def main() -> int:
             launches = {"launches": mesh_counts[name],
                         "path": f"{MESH_STEPS} k={K} fold_step(mesh=) on a mesh of 1",
                         "launches_dryrun": dry_counts[name]}
+        extra = {}
+        if method in PIPPENGER_METHODS:
+            extra = {"sources": PIPPENGER_SOURCES, "phases_ms": at[0]["phases_ms"],
+                     "scratch_bytes": at[0]["scratch_bytes"],
+                     **{k: at[0][k] for k in ("paired_ms", "prev_ms") if k in at[0]}}
         kernels.append({
             "name": name, "route": "cuda", "source": f"mira_tpu_torch/csrc/{src}",
             "replaces": replaces, **launches,
-            "max_abs_err": max(a["max_abs_err"] for a in at),
+            "max_abs_err": max([a["max_abs_err"] for a in at]
+                               + ([pippenger_err] if extra else [])),
             "ms": at[0]["ms"], "plain_ms": at[0]["plain_ms"],
             "bound_ms": at[0]["bound_ms"], "bound_by": at[0]["bound_by"],
-            "library_ms": None,
+            "library_ms": None, **extra,
             "shape": f"N=2^{K} bn254 (the cross-term width), full-width scalars",
             "at": at,
         })
     kernels[1]["launches_mesh"] = mesh_counts["fold_eval"]
     kernels[1]["launches_dryrun"] = dry_counts["fold_eval"]
-    mesh_summary = {"step_s": mesh_secs, "verify_s": mesh_verify,
+    mesh_summary = {"step_s": mesh_secs, "single_step_s": step_secs,
+                    "verify_s": mesh_verify,
                     "peak_gib": mesh_peak / 2**30, "dryrun_s": dry_secs}
     log(f"mesh path summary: {json.dumps(mesh_summary)}")
+    log(f"mesh fold steps (s) {mesh_secs} beside this run's single-device "
+        f"k={K} fold steps {step_secs}")
 
     # -- ProtoGalaxy at k=17 on the path's structure and key ---------------------
     t0 = time.perf_counter()

@@ -46,14 +46,14 @@ _SIGNATURES = {
     "mira_fold_eval_block": [_I, _I],
     "mira_msm_fixed_blocks": [_I, _I, _I, _I],
     "mira_msm_fixed_recode": [_P, _I, _I, _I, _P, _P],
-    "mira_msm_fixed_acc": [_I, _I, _P, _P, _I, _I, _I, _P, _P],
+    "mira_msm_fixed_acc": [_I, _I, _P, _P, _I, _I, _I, _P, _I, _P],
     "mira_msm_fixed_finish": [_I, _I, _P, _I, _I, _P, _P, _P, _P],
     "mira_fixed_table": [_I, _P, _P, _P, _I, _I, _P, _P, _P],
     "mira_ntt_stage": [_I, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     "mira_ntt_fourstep": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
     "mira_poseidon": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
-    "mira_msm_pippenger": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                           _P, _P],
+    "mira_msm_pippenger_recode": [_P, _I, _I, _I, _P, _P],
+    "mira_msm_pippenger_finish": [_I, _I, _P, _I, _I, _P, _P, _P, _P],
     "mira_msm_lane": [_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
 }
 

@@ -8,9 +8,9 @@ PTX version), both products' throughput over 270k threads, the one-thread
 latency of an XYZZ doubling, a Jacobian doubling and a full XYZZ addition,
 and the mixed-addition rate of a madd loop at four block shapes.  Then it
 times the MSM kernels of the port at their head shapes per launch with
-torch.profiler (kernel 1 at 2^17, kernels 3 and 3b at 248,533 points w=5
-and 2^17 w=6, over points of a 2^18 key); with --prev also the previous
-design of the table build (commit 2f5ff22), built from the copy that
+torch.profiler (kernels 1 and 4 at 2^17, kernels 3 and 3b at 248,533
+points w=5 and 2^17 w=6, over points of a 2^18 key); with --prev also the
+previous design of kernel 4 (commit 9e88700), built from the copy that
 chip_smoke.py's PREV_CSRC names.
 """
 
@@ -149,17 +149,21 @@ def profile_msms(dev, rng, prev: bool):
     P17, s17 = ck._enc_slice(1 << 17), scalars(1 << 17)
     cases.append(("msm_bucket 2^17", lambda: cuda_msm.msm_cuda(s17, P17, BN254_G1),
                   None))
+    cases.append(("msm_pippenger 2^17",
+                  lambda: cuda_msm.msm_pippenger_cuda(s17, P17, BN254_G1),
+                  old and (lambda: old["msm_pippenger"](s17, P17, BN254_G1, True))))
     for n, w in ((248533, 5), (1 << 17, 6)):
         Pn, sn = ck._enc_slice(n), scalars(n)
         tab = cuda_msm.fixed_table_cuda(Pn, BN254_G1, w)
         cases.append((f"fixed_table {n} w={w}",
                       lambda P=Pn, w=w: cuda_msm.fixed_table_cuda(P, BN254_G1, w),
-                      old and (lambda P=Pn, w=w: old["fixed_table"](P, BN254_G1, w))))
+                      None))
         cases.append((f"msm_fixed {n} w={w}",
                       lambda s=sn, t=tab, w=w: cuda_msm.msm_fixed_cuda(s, t, BN254_G1, w),
                       None))
     for name, new, before in cases:
-        for label, fn in (("this tree", new), ("commit 2f5ff22", before)):
+        for label, fn in (("this tree", new), (f"commit {chip_smoke.PREV_COMMIT}",
+                                               before)):
             if fn is None:
                 continue
             fn()
@@ -178,7 +182,7 @@ def profile_msms(dev, rng, prev: bool):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", action="store_true",
-                    help="also profile the previous design of the table build")
+                    help="also profile the previous design of kernel 4")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("msm_micro: no CUDA device visible", file=sys.stderr)

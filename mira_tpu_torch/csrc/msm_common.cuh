@@ -1,6 +1,5 @@
 // Pieces shared by the MSM kernels (msm_bucket.cu, msm_fixed.cu,
-// msm_pippenger.cu): signed-digit recoding (a per-point pass, and the
-// closed-form carries that kernel 4 still recodes with on the fly), XYZZ
+// msm_pippenger.cu): signed-digit recoding (a per-point pass), XYZZ
 // points in shared memory and a block tree over them, the reduction of
 // per-(window, part) sums to one sum per window, and the weighted sum over
 // the windows (Horner's, as one doubling chain per window side by side).
@@ -15,41 +14,12 @@
 namespace mira {
 namespace {
 
-// Digit of the window that starts at `bit` in the signed W-bit recoding of
-// the 256-bit scalar s: raw bits [bit, bit + W) plus the incoming carry,
-// which is [ (s mod 2^bit) > thr ] with thr = (2^(W-1) - 1) * (2^bit - 1) /
-// (2^W - 1), the largest value the digits below can reach (clamped to
-// 2^256 - 1 where it does not fit: no carry can arrive there).  Digits are
-// in [-2^(W-1), 2^(W-1) - 1].
-template <int W>
-__device__ __forceinline__ int signed_digit(const uint32_t* s, int bit,
-                                            const uint32_t* thr) {
-  int wi = bit >> 5, off = bit & 31;
-  uint32_t lo = wi < 8 ? s[wi] >> off : 0u;
-  uint32_t hi = (off > 32 - W && wi + 1 < 8) ? s[wi + 1] << (32 - off) : 0u;
-  int raw = (int)((lo | hi) & ((1u << W) - 1u));
-  int carry = 0;
-#pragma unroll
-  for (int k = 7; k >= 0; k--) {
-    uint32_t sk;
-    if (32 * k + 32 <= bit) sk = s[k];
-    else if (32 * k >= bit) sk = 0u;
-    else sk = s[k] & ((1u << (bit - 32 * k)) - 1u);
-    if (sk != thr[k]) {
-      carry = sk > thr[k];
-      break;
-    }
-  }
-  int t = raw + carry;
-  return t >= (1 << (W - 1)) ? t - (1 << W) : t;
-}
-
 // The recoding pass: one thread per point reads its 32-byte scalar once and
 // writes its nwin signed c-bit digits (c <= 16), window-major, so that the
-// passes after it read one window's digits coalesced.  The carry is
-// threaded from window to window inside the thread (the same digits as the
-// closed form above).  With Z given, a point whose Z row is zero (the
-// identity) gets all-zero digits, so that it is never added.
+// passes after it read one window's digits coalesced: digit d_w in
+// [-2^(c-1), 2^(c-1) - 1] is the raw bits [c*w, c*w + c) plus the carry
+// threaded from the window below.  With Z given, a point whose Z row is
+// zero (the identity) gets all-zero digits, so that it is never added.
 __global__ void recode_digits(const uint32_t* sc, const uint32_t* Z, int n,
                               int c, int nwin, int16_t* digits) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;

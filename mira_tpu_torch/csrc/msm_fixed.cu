@@ -57,7 +57,7 @@ constexpr int FIX_MINB = 5;  // blocks per SM that ptxas must leave room for
 template <class F, int W>
 __global__ void __launch_bounds__(FIX_T, FIX_MINB)
     fixed_acc(const int16_t* digits, const uint32_t* tab, int n, int per,
-              xyzz* partial) {
+              xyzz* partial, int ldp) {
   constexpr int NTAB = 1 << (W - 1);
   int b = blockIdx.x, w = blockIdx.y;
   int i1 = min(n, (b + 1) * per);
@@ -74,7 +74,7 @@ __global__ void __launch_bounds__(FIX_T, FIX_MINB)
     if (d < 0) y = fe_neg<F>(y);
     xyzz_madd<F>(a, x, y);
   }
-  xyzz_store(partial + ((size_t)w * gridDim.x + b) * FIX_T + threadIdx.x, a);
+  xyzz_store(partial + (size_t)w * ldp + b * FIX_T + threadIdx.x, a);
 }
 
 // Blocks per window: one wave of the card (the resident blocks over the
@@ -94,10 +94,11 @@ static int blocks_per_window(int n, int nwin) {
 // The three phases, each one C call so that the wrapper can time them.
 template <class F, int W>
 static int acc_phase(const int16_t* digits, const uint32_t* tab, int n,
-                     int nwin, int nblk, xyzz* partial, cudaStream_t s) {
+                     int nwin, int nblk, xyzz* partial, int ldp,
+                     cudaStream_t s) {
   int per = (n + nblk - 1) / nblk;
   fixed_acc<F, W><<<dim3(nblk, nwin), FIX_T, 0, s>>>(digits, tab, n, per,
-                                                     partial);
+                                                     partial, ldp);
   return (int)cudaGetLastError();
 }
 
@@ -125,7 +126,10 @@ static int dispatch(int field, int window, Fn&& fn) {
 //   mira_msm_fixed_recode  sc (n, 8) plain words -> digits (nwin, n) int16;
 //   mira_msm_fixed_acc     digits, tab (n, 2^(window-1), 2, 8) affine
 //                          Montgomery multiples -> partial (nwin, nblk *
-//                          FIX_T) XYZZ, one per thread;
+//                          FIX_T) XYZZ, one per thread, rows ldp points
+//                          apart (nblk * FIX_T here; the Pippenger MSM,
+//                          msm_pippenger.cu, puts its chunks of points side
+//                          by side in one wider row);
 //   mira_msm_fixed_finish  partial -> out (3, 8) canonical Jacobian
 //                          Montgomery words, through tmp
 //                          (reduce_tmp_points(nwin, nblk * FIX_T) XYZZ) and
@@ -146,11 +150,11 @@ extern "C" int mira_msm_fixed_recode(const void* sc, int n, int window,
 
 extern "C" int mira_msm_fixed_acc(int field, int window, const void* digits,
                                   const void* tab, int n, int nwin, int nblk,
-                                  void* partial, void* stream) {
+                                  void* partial, int ldp, void* stream) {
   return dispatch(field, window, [&](auto tag, auto wtag) {
     return acc_phase<decltype(tag), decltype(wtag)::value>(
         (const int16_t*)digits, (const uint32_t*)tab, n, nwin, nblk,
-        (xyzz*)partial, (cudaStream_t)stream);
+        (xyzz*)partial, ldp, (cudaStream_t)stream);
   });
 }
 

@@ -1,161 +1,107 @@
-// Shared-Horner Pippenger MSM: sum_i s_i * P_i over BN254 G1 or Grumpkin,
-// with a per-lane table of multiples and one accumulator per window.
+// Shared-Horner Pippenger MSM: sum_i s_i * P_i over BN254 G1 or Grumpkin
+// for bases that are used once (the generic-base commits of the mesh fold),
+// with a multiples table built for the call.
 //
 // Replaces mira_tpu/ops/pallas_msm.py `_msm_pallas_pippenger_signed_jit`
 // (kernel 4: signed 5-bit digits in [-16, 15], table 1P..16P, 52 windows)
 // and `_msm_pallas_pippenger_jit` (kernel 5, "pippenger-u4": unsigned 4-bit
-// digits, table 1P..15P, 64 windows), behind msm_pallas(method="pippenger")
-// and the per-shard engine of mira_tpu/parallel/msm.py.  Same arithmetic:
-// each base's table of multiples, then per window the selected multiple
-// (y negated for a negative digit) added into that window's accumulator,
-// the accumulators summed over all lanes, and Horner's rule over the window
-// sums.  What the TPU kernel does and this one does not:
-//   - it carries its 52 (64) per-window accumulators in VMEM across a grid
-//     that runs in order and reduces them in the last step; blocks here run
-//     in no order, so each thread walks its own chunk of points (a loop in
-//     place of the sequential grid) and keeps its window accumulators in a
-//     scratch buffer of the caller's, (nwin, nchunks) XYZZ points, which
-//     msm_common.cuh's window_reduce sums across chunks by block trees and
-//     finish_terms joins over the windows;
-//   - it selects a table entry by a masked select over all 16 entries (Mosaic
-//     has no data-dependent gather); here a thread indexes its table.  The
-//     table, 16 XYZZ points = 2 KiB per thread, is in local memory: in shared
-//     memory it would allow ~100 threads per SM, too few warps to hide the
-//     product chains; local memory is cached in L1/L2 and each thread reads
-//     only its own entries;
-//   - it uses incomplete Jacobian additions and requires distinct,
-//     non-identity bases; every addition here is the complete XYZZ one
-//     (field.cuh), so duplicate and opposite bases, identity lanes and zero
-//     scalars are exact.
-// Digits: kernel 4 reuses msm_common.cuh's signed_digit<5> (closed-form
-// carries, one extra window for the last carry); kernel 5 reads raw 4-bit
-// digits.  The point operations are out of line (__noinline__): inlined, the
-// table build and the window loop would be dozens of copies of an addition
-// for ptxas to schedule, four times over (two fields, two digit schemes).
+// digits in [0, 15], table 1P..15P, 64 windows), behind
+// msm_pallas(method="pippenger" / "pippenger-u4") and the per-shard engine
+// of mira_tpu/parallel/msm.py.  Same arithmetic: each base's multiples, per
+// window the selected multiple (y negated for a negative digit) summed over
+// all lanes, and Horner's rule over the window sums.  The TPU kernel keeps
+// each lane's table and its 52 (64) window accumulators in VMEM across a
+// sequential grid.  Here the MSM is four passes over chunks of at most
+// `chunk` bases (ops/cuda_msm.py `pippenger_phases`), each pass a kernel
+// that the fixed-base MSM already has:
+//   table       the affine multiples 1P..16P of the chunk's bases
+//               (fixed_table.cu at w = 5: an affine doubling, mixed
+//               additions and one inversion per block of 128 lanes), into
+//               scratch that the next chunk reuses;
+//   recode      the chunk's scalars once, into int16 digits stored window
+//               by window: signed 5-bit (msm_common.cuh `recode_digits`) or
+//               unsigned 4-bit (`recode_u4` below, no carry);
+//   accumulate  msm_fixed.cu's `fixed_acc<F, 5>`: one XYZZ accumulator in
+//               registers per thread over a range of points of one window,
+//               mixed additions of the looked-up affine entries, a grid of
+//               one wave.  Kernel 5's digits index the first 15 entries of
+//               the same 16-entry table.  Each chunk writes its partials
+//               side by side in one (nwin, parts) array;
+//   finish      one reduce over every chunk's partials (msm_common.cuh
+//               `reduce_windows`) and one Horner (`finish_terms`, 5 or 4
+//               doublings a window), whatever the number of chunks.
+// The madd is the complete one (field.cuh), so duplicate and opposite
+// bases, zero scalars and identity lanes (stored as (0, 0) in the table)
+// are exact; the TPU kernel's precondition of distinct bases does not carry
+// over.
 //
-// Bound on the card: the MSM needs what the bucket MSM needs (the same
-// function); this design does ~15 point operations per base for its table
-// and one full XYZZ addition (14 products) per base and window, about 6x the
-// bucket kernel's mixed additions, so it is bound by integer multiplies, with
-// the accumulator read-modify-writes (128 B per base and window, coalesced
-// across a warp) spread over them.
+// Bound on the card: what any generic-base MSM of N points needs (the
+// bucket MSM's bound).  This design does ~238 products a base for the
+// table and a mixed addition (10 products) per base and window, 52 or 64,
+// so it is bound by the integer multiply rate; it reads 64 bytes of table
+// per base and window and writes the table once (1 KiB a base), which the
+// chunking keeps in a scratch of at most `chunk` bases.
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "field.cuh"
 #include "msm_common.cuh"
 
 using namespace mira;
 
-template <class F>
-__device__ __noinline__ void pt_add(xyzz& a, const xyzz& b) {
-  a = xyzz_add<F>(a, b);
-}
-
-template <class F>
-__device__ __noinline__ void pt_double(xyzz& a) {
-  a = xyzz_double<F>(a);
-}
-
-// One thread per chunk c: points c, c + nchunks, ...; acc[w * nchunks + c]
-// is the chunk's sum of window w's selected multiples.
-template <class F, bool SIGNED>
-__global__ void pippenger_acc(const uint32_t* sc, const uint32_t* X,
-                              const uint32_t* Y, const uint32_t* Z, int n,
-                              int nwin, int nchunks, const uint32_t* thr,
-                              xyzz* acc) {
-  constexpr int W = SIGNED ? 5 : 4;
-  constexpr int NT = SIGNED ? 16 : 15;
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nchunks) return;
-  for (int w = 0; w < nwin; w++) acc[(size_t)w * nchunks + c] = xyzz_identity<F>();
-  xyzz tab[NT];
-  for (int i = c; i < n; i += nchunks) {
-    uint32_t s[8], any = 0;
+// Kernel 5's digits: window w is bits [4w, 4w + 4) of the scalar, in
+// [0, 15], window-major int16 as recode_digits writes them (zero past bit
+// 255).  The loops are unrolled so that the scalar stays in registers.
+__global__ void recode_u4(const uint32_t* sc, int n, int nwin,
+                          int16_t* digits) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fe s = fe_load_v(sc + 8 * (size_t)i);
 #pragma unroll
-    for (int k = 0; k < 8; k++) {
-      s[k] = sc[8 * i + k];
-      any |= s[k];
-    }
-    if (any == 0 || fe_is_zero(fe_load(Z + 8 * i))) continue;
-    tab[0].X = fe_load(X + 8 * i);
-    tab[0].Y = fe_load(Y + 8 * i);
-    tab[0].ZZ = fe_one<F>();
-    tab[0].ZZZ = fe_one<F>();
-    tab[1] = tab[0];
-    pt_double<F>(tab[1]);
-    if constexpr (SIGNED) {
-      // odd v from (v - 2)P + 2P, even v by doubling v/2
-      for (int v = 3; v <= 15; v += 2) {
-        tab[v - 1] = tab[v - 3];
-        pt_add<F>(tab[v - 1], tab[1]);
-      }
-      for (int v = 4; v <= 16; v += 2) {
-        tab[v - 1] = tab[v / 2 - 1];
-        pt_double<F>(tab[v - 1]);
-      }
-    } else {
-      for (int d = 2; d < NT; d++) {
-        tab[d] = tab[d - 1];
-        pt_add<F>(tab[d], tab[0]);
-      }
-    }
-    for (int w = 0; w < nwin; w++) {
-      int d;
-      if constexpr (SIGNED) {
-        d = signed_digit<W>(s, W * w, thr + 8 * w);
-      } else {
-        int bit = W * w;
-        d = bit < 256 ? (int)((s[bit >> 5] >> (bit & 31)) & 15u) : 0;
-      }
-      if (d == 0) continue;
-      xyzz q = tab[(d < 0 ? -d : d) - 1];
-      if (d < 0) q.Y = fe_neg<F>(q.Y);
-      xyzz a = acc[(size_t)w * nchunks + c];
-      pt_add<F>(a, q);
-      acc[(size_t)w * nchunks + c] = a;
+  for (int k = 0; k < 8; k++) {
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      int w = 8 * k + j;
+      if (w < nwin)
+        digits[(size_t)w * n + i] = (int16_t)((s.v[k] >> (4 * j)) & 15u);
     }
   }
+  for (int w = 64; w < nwin; w++) digits[(size_t)w * n + i] = 0;
 }
 
-template <class F, bool SIGNED>
-static int launch(const uint32_t* sc, const uint32_t* X, const uint32_t* Y,
-                  const uint32_t* Z, int n, int nwin, int nchunks,
-                  const uint32_t* thr, xyzz* acc, xyzz* partial, xyzz* ws,
-                  uint32_t* out, cudaStream_t s) {
-  const int T = 128;
-  pippenger_acc<F, SIGNED><<<(nchunks + T - 1) / T, T, 0, s>>>(
-      sc, X, Y, Z, n, nwin, nchunks, thr, acc);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  err = reduce_windows<F>(acc, nwin, nchunks, partial, ws, s);
-  if (err) return err;
-  return launch_finish<F>(ws, nwin, SIGNED ? 5 : 4, out, s);
-}
-
-// field 0: BN254 G1 (coordinates in Fq); field 1: Grumpkin (in Fr).  signed
-// 1: kernel 4 (nwin = 52 for 254-bit scalars; thr: (nwin, 8) carry
-// thresholds of the 5-bit recoding), 0: kernel 5 (nwin = 64; thr unused).
-// sc, X, Y, Z: (n, 8) words, bases affine or identity (Z in {0, R mod p});
-// scratch sized by the caller in XYZZ points (32 words each): acc
-// nwin*nchunks, partial reduce_tmp_points(nwin, nchunks) (ops/cuda_msm.py),
-// ws nwin; out: (3, 8) canonical Jacobian Montgomery words.
-extern "C" int mira_msm_pippenger(int field, int is_signed, const void* sc,
-                                  const void* X, const void* Y, const void* Z,
-                                  int n, int nwin, int nchunks,
-                                  const void* thr, void* acc, void* partial,
-                                  void* ws, void* out, void* stream) {
+// sc: (n, 8) plain scalar words (< 2^256); is_signed 1: kernel 4's signed
+// 5-bit digits (nwin = 52 for 254-bit scalars, the last window takes the
+// last carry), 0: kernel 5's unsigned 4-bit digits (nwin = 64); digits:
+// (nwin, n) int16.  Returns a cudaError_t.
+extern "C" int mira_msm_pippenger_recode(const void* sc, int n, int is_signed,
+                                         int nwin, void* digits,
+                                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  auto run = [&](auto tag, auto sgn) {
+  if (is_signed)
+    recode_digits<<<(n + 255) / 256, 256, 0, s>>>(
+        (const uint32_t*)sc, nullptr, n, 5, nwin, (int16_t*)digits);
+  else
+    recode_u4<<<(n + 255) / 256, 256, 0, s>>>((const uint32_t*)sc, n, nwin,
+                                              (int16_t*)digits);
+  return (int)cudaGetLastError();
+}
+
+// field 0: BN254 G1 (coordinates in Fq); field 1: Grumpkin (in Fr).
+// partial: (nwin, nparts) XYZZ sums, every chunk's accumulate output side by
+// side; window 5 (kernel 4) or 4 (kernel 5) doublings a window; tmp:
+// reduce_tmp_points(nwin, nparts) XYZZ points (ops/cuda_msm.py), ws: nwin;
+// out: (3, 8) canonical Jacobian Montgomery words.  Returns a cudaError_t.
+extern "C" int mira_msm_pippenger_finish(int field, int window,
+                                         const void* partial, int nwin,
+                                         int nparts, void* tmp, void* ws,
+                                         void* out, void* stream) {
+  if (window != 5 && window != 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto run = [&](auto tag) {
     using F = decltype(tag);
-    return launch<F, decltype(sgn)::value>(
-        (const uint32_t*)sc, (const uint32_t*)X, (const uint32_t*)Y,
-        (const uint32_t*)Z, n, nwin, nchunks, (const uint32_t*)thr,
-        (xyzz*)acc, (xyzz*)partial, (xyzz*)ws, (uint32_t*)out, s);
+    int err = reduce_windows<F>((const xyzz*)partial, nwin, nparts, (xyzz*)tmp,
+                                (xyzz*)ws, s);
+    if (err) return err;
+    return launch_finish<F>((const xyzz*)ws, nwin, window, (uint32_t*)out, s);
   };
-  using S1 = std::integral_constant<bool, true>;
-  using S0 = std::integral_constant<bool, false>;
-  if (is_signed) return field == 0 ? run(Fq{}, S1{}) : run(Fr{}, S1{});
-  return field == 0 ? run(Fq{}, S0{}) : run(Fr{}, S0{});
+  return field == 0 ? run(Fq{}) : run(Fr{});
 }

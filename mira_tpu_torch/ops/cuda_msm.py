@@ -2,7 +2,8 @@
 of mira_tpu/ops/pallas_msm.py `msm_pallas(method="bucket")`; the fixed-base
 MSM (csrc/msm_fixed.cu), the port of `msm_pallas_fixed`; its multiples
 table (csrc/fixed_table.cu), the port of `precompute_fixed_table`; the
-shared-Horner Pippenger (csrc/msm_pippenger.cu), the port of
+shared-Horner Pippenger (csrc/msm_pippenger.cu over the table build and
+the accumulation of the fixed-base MSM), the port of
 `msm_pallas(method="pippenger" / "pippenger-u4")`; and the per-lane
 double-and-add (csrc/msm_lane.cu), the port of `msm_pallas(method="window")`
 and of its bit-serial kernel ("lane").
@@ -26,6 +27,7 @@ from .. import _build
 from ..fields.limbs import NUM_WORDS, limb_field
 from .msm import (
     PIPPENGER_WINDOW,
+    U4_WINDOW,
     WINDOW,
     bucket_window,
     merge_levels,
@@ -42,7 +44,10 @@ pippenger_launches = 0  # kernel 4 (signed 5-bit Pippenger) MSMs
 pippenger_u4_launches = 0  # kernel 5 (unsigned 4-bit Pippenger) MSMs
 window_launches = 0  # kernel 6 (per-lane 4-bit windows) MSMs
 lane_launches = 0  # kernel 7 (per-lane bit-serial) MSMs
-PIPPENGER_MAX_CHUNKS = 32768  # threads of the Pippenger kernel's first pass
+# bases per multiples table of kernels 4 and 5: at 2^21 bases on the H100,
+# chunks of 2^18, 2^19 and 2^20 took 71.2, 72.1 and 73.3 ms and 472, 828
+# and 1,596 MiB of scratch (chip_smoke.py `pippenger_timings`)
+PIPPENGER_CHUNK = 1 << 18
 LANE_BLOCK = 128  # lanes per block of the per-lane kernel (csrc LANE_T)
 FIXED_WINDOWS = (5, 6)  # the windows the fixed-base kernels are built for
 _XYZZ_WORDS = 4 * NUM_WORDS
@@ -58,7 +63,10 @@ def carry_thresholds(nwin: int, window: int = WINDOW) -> np.ndarray:
     """(nwin, 8) uint32 words of (2^(w-1) - 1) * (2^(w*k) - 1) / (2^w - 1)
     for window k: the incoming carry of window k is 1 iff the scalar's low
     w*k bits exceed it.  A threshold of 2^256 or more (no carry can arrive)
-    is clamped to 2^256 - 1."""
+    is clamped to 2^256 - 1.  The closed form of `signed_digits`' carries,
+    which the kernels thread from window to window instead; chip_smoke.py's
+    paired timing of kernel 4's thread-per-chunk design (commit 9e88700)
+    passes it to that design's C interface."""
     out = np.zeros((nwin, NUM_WORDS), dtype=np.uint32)
     half = 1 << (window - 1)
     for w in range(nwin):
@@ -108,6 +116,16 @@ def _check_msm_args(scalars, points, what: str):
             raise ValueError(f"{what}: expects (N, 8) int32 tensors on one "
                              "CUDA device")
     return n, dev, tuple(t.contiguous() for t in (scalars, X, Y, Z))
+
+
+def _check_affine(Z: torch.Tensor, curve: CurveParams, what: str):
+    """Raise ValueError unless every base is affine (Z = 1, Montgomery R) or
+    the identity (Z = 0): kernel 3b's affine doubling and mixed additions
+    take any other Z for 1.  One check on the card, one synchronisation."""
+    one = limb_field(curve.base_modulus).one((1,), Z.device)
+    if not ((Z == one).all(-1) | (Z == 0).all(-1)).all():
+        raise ValueError(f"{what}: every base must be affine (Z = 1) or the "
+                         "identity (Z = 0)")
 
 
 def _identity(curve: CurveParams, dev):
@@ -180,39 +198,104 @@ def bucket_phases(scalars: torch.Tensor, points, curve: CurveParams,
     return phases, out
 
 
-def pippenger_chunks(n: int) -> int:
-    """Threads of the Pippenger kernel's first pass: ~4 points each, at most
-    PIPPENGER_MAX_CHUNKS (then more points per thread)."""
-    return max(1, min(PIPPENGER_MAX_CHUNKS, -(-n // 4)))
+def pippenger_chunks(n: int, chunk: int = PIPPENGER_CHUNK):
+    """Kernels 4 and 5's chunks of the bases: [(first base, bases)], each of
+    at most `chunk` bases, whose tables are built and consumed one after
+    another in one scratch buffer."""
+    if chunk < 1:
+        raise ValueError(f"msm_pippenger: chunk {chunk} < 1")
+    return [(c0, min(chunk, n - c0)) for c0 in range(0, n, chunk)]
+
+
+def pippenger_scratch_bytes(nwin: int, largest_chunk: int, nparts: int) -> int:
+    """Device bytes of kernels 4 and 5's scratch for one call: the w = 5
+    table of the largest chunk and its chain factors (1 KiB + 448 B a base),
+    its digits (2 B a base and window), the window partials of every chunk
+    side by side, the reduce's levels and the window sums (128 B a point),
+    and the output (96 B)."""
+    ntab = 1 << (PIPPENGER_WINDOW - 1)
+    per_base = ntab * 64 + (ntab - 2) * 32 + 2 * nwin
+    points = nwin * nparts + reduce_tmp_points(nwin, nparts) + nwin
+    return largest_chunk * per_base + points * _XYZZ_WORDS * 4 + 3 * NUM_WORDS * 4
 
 
 def msm_pippenger_cuda(scalars: torch.Tensor, points, curve: CurveParams,
-                       signed: bool = True):
+                       signed: bool = True, chunk: int = PIPPENGER_CHUNK):
     """Kernel 4 (signed 5-bit digits) or 5 (unsigned 4-bit); ops/msm.py
-    `msm_pippenger_plain` is its plain version.  Bases affine or identity;
-    duplicate and opposite bases are exact (complete XYZZ additions)."""
+    `msm_pippenger_plain` is its plain version, `pippenger_msm_model` its
+    algorithm.  Bases affine or identity (others raise ValueError); duplicate
+    and opposite bases, identity lanes and zero scalars are exact (complete
+    XYZZ formulas).  Returns a canonical Jacobian triple of (8,) tensors.
+    Counted as `pippenger_launches` or `pippenger_u4_launches` alone: its
+    table build and accumulation are kernels 3b's and 3's code, but not
+    their launches."""
     global pippenger_launches, pippenger_u4_launches
-    field = _build.field_id(curve.base_modulus)
-    n, dev, (sc, X, Y, Z) = _check_msm_args(scalars, points, "msm_pippenger_cuda")
-    if n == 0:
-        return _identity(curve, dev)
-    nwin = pippenger_windows(curve.scalar_modulus.bit_length(), signed)
-    nchunks = pippenger_chunks(n)
-    thr = _thresholds_on(nwin, PIPPENGER_WINDOW, dev) if signed else sc
-    acc = _xyzz(nwin * nchunks, dev)
-    partial = _xyzz(reduce_tmp_points(nwin, nchunks), dev)
-    ws = _xyzz(nwin, dev)
-    out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
-    err = _build.lib().mira_msm_pippenger(
-        field, int(signed), sc.data_ptr(), X.data_ptr(), Y.data_ptr(),
-        Z.data_ptr(), n, nwin, nchunks, thr.data_ptr(), acc.data_ptr(),
-        partial.data_ptr(), ws.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
-    _build.check(err, "msm_pippenger")
+    phases, out = pippenger_phases(scalars, points, curve, signed, chunk)
+    if out is None:
+        return phases
+    for name, run in phases:
+        _build.check(run(), f"msm_pippenger {name}")
     if signed:
         pippenger_launches += 1
     else:
         pippenger_u4_launches += 1
     return (out[0], out[1], out[2])
+
+
+def pippenger_phases(scalars: torch.Tensor, points, curve: CurveParams,
+                     signed: bool = True, chunk: int = PIPPENGER_CHUNK):
+    """Kernels 4 and 5 as their C calls: ([(phase, call)], out), to be made
+    in order, as `bucket_phases`.  Per chunk of at most `chunk` bases
+    (`pippenger_chunks`): "table" (kernel 3b's w = 5 table of the chunk's
+    bases), "recode" (its scalars' digits, window-major) and "accumulate"
+    (kernel 3's accumulation at w = 5, its partials in the chunk's columns
+    of one (nwin, parts) array); then one "finish" (the reduce over every
+    chunk's partials and one Horner).  For N = 0 returns (the identity,
+    None)."""
+    what = "msm_pippenger_cuda"
+    field = _build.field_id(curve.base_modulus)
+    n, dev, (sc, X, Y, Z) = _check_msm_args(scalars, points, what)
+    chunks = pippenger_chunks(n, chunk)
+    if n == 0:
+        return _identity(curve, dev), None
+    _check_affine(Z, curve, what)
+    nwin = pippenger_windows(curve.scalar_modulus.bit_length(), signed)
+    w = PIPPENGER_WINDOW
+    lib, st = _build.lib(), _build.stream_ptr(dev)
+    nblks = [lib.mira_msm_fixed_blocks(field, w, nc, nwin) for _, nc in chunks]
+    nparts = FIXED_BLOCK * sum(nblks)
+    m = chunks[0][1]  # the largest chunk
+    ntab = 1 << (w - 1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    tab = torch.empty(m, ntab, 2, NUM_WORDS, **i32)
+    hs = torch.empty(ntab - 2, m, NUM_WORDS, **i32)  # kernel 3b's chain factors
+    digits = torch.empty(nwin, m, dtype=torch.int16, device=dev)
+    parts = _xyzz(nwin * nparts, dev)
+    tmp, ws = _xyzz(reduce_tmp_points(nwin, nparts), dev), _xyzz(nwin, dev)
+    out = torch.empty(3, NUM_WORDS, **i32)
+
+    def call(fn, *args):
+        # the closure holds the tensors (views of a chunk's rows included)
+        # until the call, which passes their data pointers
+        return lambda: fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                            for a in args))
+
+    phases, col = [], 0
+    for (c0, nc), nblk in zip(chunks, nblks):
+        rows = slice(c0, c0 + nc)
+        phases += [
+            ("table", call(lib.mira_fixed_table, field, X[rows], Y[rows], Z[rows],
+                           nc, w, tab, hs, st)),
+            ("recode", call(lib.mira_msm_pippenger_recode, sc[rows], nc,
+                            int(signed), nwin, digits, st)),
+            ("accumulate", call(lib.mira_msm_fixed_acc, field, w, digits, tab, nc,
+                                nwin, nblk, parts[col:], nparts, st)),
+        ]
+        col += nblk * FIXED_BLOCK
+    phases.append(("finish", call(
+        lib.mira_msm_pippenger_finish, field, w if signed else U4_WINDOW, parts,
+        nwin, nparts, tmp, ws, out, st)))
+    return phases, out
 
 
 def msm_lane_cuda(scalars: torch.Tensor, points, curve: CurveParams,
@@ -269,10 +352,7 @@ def fixed_table_cuda(points, curve: CurveParams, window: int) -> torch.Tensor:
             raise ValueError("fixed_table_cuda: expects (N, 8) int32 tensors on "
                              "one CUDA device")
     X, Y, Z = (t.contiguous() for t in (X, Y, Z))
-    one = limb_field(curve.base_modulus).one((1,), dev)
-    if not ((Z == one).all(-1) | (Z == 0).all(-1)).all():
-        raise ValueError("fixed_table_cuda: every base must be affine (Z = 1) "
-                         "or the identity (Z = 0)")
+    _check_affine(Z, curve, "fixed_table_cuda")
     ntab = 1 << (window - 1)
     tab = torch.empty(n, ntab, 2, NUM_WORDS, dtype=torch.int32, device=dev)
     if n == 0:
@@ -343,21 +423,9 @@ def fixed_phases(scalars: torch.Tensor, table: torch.Tensor,
             ptr(scalars), n, window, nwin, ptr(digits), st)),
         ("accumulate", lambda: lib.mira_msm_fixed_acc(
             field, window, ptr(digits), ptr(table), n, nwin, nblk, ptr(partial),
-            st)),
+            nparts, st)),
         ("finish", lambda: lib.mira_msm_fixed_finish(
             field, window, ptr(partial), nwin, nblk, ptr(tmp), ptr(ws), ptr(out),
             st)),
     ]
     return phases, out
-
-
-_thr_cache = {}
-
-
-def _thresholds_on(nwin: int, window: int, dev) -> torch.Tensor:
-    key = (nwin, window, str(dev))
-    t = _thr_cache.get(key)
-    if t is None:
-        t = torch.from_numpy(carry_thresholds(nwin, window).view(np.int32)).to(dev)
-        _thr_cache[key] = t
-    return t

@@ -21,7 +21,10 @@ Horner's rule.
 other generic-base engines of mira_tpu's `msm_pallas` (csrc/msm_pippenger.cu,
 csrc/msm_lane.cu), and `msm(..., method=)` picks an engine by mira_tpu's
 method name, the plain version for a CPU tensor and the kernel for a CUDA
-one.
+one.  `pippenger_msm_model` is the Pippenger kernels' chunked algorithm on
+these tensors (a w = 5 table per chunk of bases, window sums added over the
+chunks, one Horner), as `bucket_msm_model` and `fixed_table_model` are
+kernel 1's and kernel 3b's.
 """
 
 from __future__ import annotations
@@ -421,22 +424,14 @@ def tree_sum(ops, pts):
     return tuple(c[:, 0] for c in pts)
 
 
-@torch.inference_mode()
-def msm_fixed_plain(scalars: torch.Tensor, table: torch.Tensor,
-                    curve: CurveParams, window: int):
-    """sum_i s_i * P_i over a table of P_i's multiples
-    (`precompute_fixed_table_plain`).  scalars: (N, 8) plain words.  Signed
-    w-bit digits, a lookup of |d|*P (y negated for d < 0) per (point,
-    window), the sum S_w of each window, and sum_w 2^(w*k) * S_w by Horner.
-    Returns a canonical Jacobian triple of (8,) word tensors."""
-    ops = jacobian_ops(curve.name)
+def window_sums(ops, digits: torch.Tensor, table: torch.Tensor):
+    """The per-window sums S_w of a table-driven MSM: digits (nwin, N)
+    int64 signed or unsigned, table (N, ntab, 2, 8) affine multiples (0, 0
+    for an identity lane); window w adds |d|*P_i (y negated for d < 0) over
+    the lanes i.  Returns a lazy Jacobian (nwin,) point."""
     lf = ops.lf
-    dev = scalars.device
-    n = scalars.shape[0]
-    nwin = num_windows(curve.scalar_modulus.bit_length(), window)
-    if n == 0:
-        return ops.identity((), dev)
-    digits = signed_digits(scalars, nwin, window).T.contiguous()  # (nwin, N)
+    dev = digits.device
+    nwin, n = digits.shape
     lane = torch.arange(n, device=dev)
     group = max(1, (1 << 21) // n)  # windows per pass: bounds the temporaries
     sums = []
@@ -449,14 +444,37 @@ def msm_fixed_plain(scalars: torch.Tensor, table: torch.Tensor,
         pts = (lf.lz(x), lf.where(d < 0, -ey, ey),
                lf.lz(lf.select(live, lf.one(live.shape, dev), lf.zero(live.shape, dev))))
         sums.append(tree_sum(ops, pts))
-    S = tuple(Lz(lf, torch.cat([lf.settle(s[i]).t for s in sums]), 1)
-              for i in range(3))
+    return tuple(Lz(lf, torch.cat([lf.settle(s[i]).t for s in sums]), 1)
+                 for i in range(3))
+
+
+def horner(ops, S, window: int):
+    """sum_w 2^(window*w) * S_w of a lazy (nwin,) point, by Horner's rule
+    from the top window down."""
+    nwin = S[0].shape[0]
     acc = tuple(c[nwin - 1] for c in S)
     for k in range(nwin - 2, -1, -1):
         for _ in range(window):
             acc = ops.ldouble(acc)
         acc = ops.ladd(acc, tuple(c[k] for c in S))
-    return ops.canon(acc)
+    return acc
+
+
+@torch.inference_mode()
+def msm_fixed_plain(scalars: torch.Tensor, table: torch.Tensor,
+                    curve: CurveParams, window: int):
+    """sum_i s_i * P_i over a table of P_i's multiples
+    (`precompute_fixed_table_plain`).  scalars: (N, 8) plain words.  Signed
+    w-bit digits, a lookup of |d|*P (y negated for d < 0) per (point,
+    window), the sum S_w of each window, and sum_w 2^(w*k) * S_w by Horner.
+    Returns a canonical Jacobian triple of (8,) word tensors."""
+    ops = jacobian_ops(curve.name)
+    n = scalars.shape[0]
+    nwin = num_windows(curve.scalar_modulus.bit_length(), window)
+    if n == 0:
+        return ops.identity((), scalars.device)
+    digits = signed_digits(scalars, nwin, window).T.contiguous()  # (nwin, N)
+    return ops.canon(horner(ops, window_sums(ops, digits, table), window))
 
 
 # -- generic-base engines: shared-Horner Pippenger and per-lane MSMs -----------
@@ -517,8 +535,7 @@ def msm_pippenger_plain(scalars: torch.Tensor, points, curve: CurveParams,
         return ops.identity((), dev)
     window = PIPPENGER_WINDOW if signed else U4_WINDOW
     nwin = pippenger_windows(curve.scalar_modulus.bit_length(), signed)
-    digits = (signed_digits(scalars, nwin, window) if signed
-              else unsigned_digits(scalars, nwin, window)).T.contiguous()
+    digits = _pippenger_digits(scalars, nwin, signed).T.contiguous()
     T = _stack(lf, _pippenger_table(ops, ops.lz(points), signed))  # (ntab, N)
     lane = torch.arange(n, device=dev)
     group = max(1, (1 << 21) // n)  # windows per pass: bounds the temporaries
@@ -532,12 +549,44 @@ def msm_pippenger_plain(scalars: torch.Tensor, points, curve: CurveParams,
         sums.append(tree_sum(ops, sel))
     S = tuple(Lz(lf, torch.cat([lf.settle(s[i]).t for s in sums]), 1)
               for i in range(3))
-    acc = tuple(c[nwin - 1] for c in S)
-    for k in range(nwin - 2, -1, -1):
-        for _ in range(window):
-            acc = ops.ldouble(acc)
-        acc = ops.ladd(acc, tuple(c[k] for c in S))
-    return ops.canon(acc)
+    return ops.canon(horner(ops, S, window))
+
+
+def _pippenger_digits(scalars: torch.Tensor, nwin: int, signed: bool):
+    """(N, nwin) digits of kernel 4 (signed 5-bit) or 5 (unsigned 4-bit)."""
+    if signed:
+        return signed_digits(scalars, nwin, PIPPENGER_WINDOW)
+    return unsigned_digits(scalars, nwin, U4_WINDOW)
+
+
+@torch.inference_mode()
+def pippenger_msm_model(scalars: torch.Tensor, points, curve: CurveParams,
+                        signed: bool, chunk: int):
+    """Kernels 4 and 5's algorithm on the port's tensors (ops/cuda_msm.py
+    `pippenger_phases`): the bases cut into chunks of `chunk`; per chunk
+    the w = 5 table of affine multiples 1P..16P (kernel 3b's function,
+    `precompute_fixed_table_plain`), the chunk's digits (signed 5-bit, or
+    unsigned 4-bit indexing the table's first 15 entries) and each window's
+    sum of the looked-up entries; those window sums added over the chunks;
+    one Horner (5 or 4 doublings a window).  scalars: (N, 8) plain words;
+    points (X, Y, Z) affine or identity.  Returns a canonical Jacobian
+    triple."""
+    if chunk < 1:
+        raise ValueError(f"pippenger_msm_model: chunk {chunk} < 1")
+    ops = jacobian_ops(curve.name)
+    n = scalars.shape[0]
+    if n == 0:
+        return ops.identity((), scalars.device)
+    nwin = pippenger_windows(curve.scalar_modulus.bit_length(), signed)
+    S = None
+    for c0 in range(0, n, chunk):
+        part = slice(c0, c0 + chunk)
+        table = precompute_fixed_table_plain(tuple(c[part] for c in points), curve,
+                                             PIPPENGER_WINDOW)
+        digits = _pippenger_digits(scalars[part], nwin, signed).T.contiguous()
+        sums = window_sums(ops, digits, table)
+        S = sums if S is None else ops.ladd(S, sums)
+    return ops.canon(horner(ops, S, PIPPENGER_WINDOW if signed else U4_WINDOW))
 
 
 @torch.inference_mode()

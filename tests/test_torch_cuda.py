@@ -21,7 +21,10 @@ from mira_tpu_torch.ops.msm import (
     encode_scalars,
     msm,
     msm_fixed_plain,
+    msm_pippenger_plain,
     msm_plain,
+    pippenger_msm_model,
+    pippenger_windows,
     plain_engine,
     precompute_fixed_table_plain,
 )
@@ -554,3 +557,92 @@ def test_msm_kernel_launch_counters(cuda_device):  # noqa: F811
                             BN254_G1, 5)
     assert (cuda_msm.launches, cuda_msm.fixed_launches) == (before[0] + 1,
                                                             before[1] + 1)
+
+
+# -- kernels 4 and 5: chunks of bases, launch counters, scratch ---------------
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+@pytest.mark.parametrize("signed", [True, False], ids=["signed", "u4"])
+@pytest.mark.parametrize("n", [255, 256, 257, 768])
+def test_pippenger_kernels_at_chunk_borders(curve, signed, n, cuda_device):  # noqa: F811
+    """Kernels 4 and 5 in chunks of 256 bases: one base either side of a
+    chunk and a width of three chunks, with duplicate and opposite bases
+    across the borders, an identity lane and edge scalars, against their
+    plain versions, `pippenger_msm_model` and the host MSM."""
+    sc, pts = _adversarial(curve, n, seed=n + signed)
+    sc = _edge_scalars(curve, sc)
+    pts[n // 2] = pts[1].neg()
+    pts[n - 2] = pts[2]
+    ops = jacobian_ops(curve.name)
+
+    def dec(out):
+        return ops.decode_points(tuple(c[None] for c in out))[0]
+
+    s = encode_scalars(sc, curve.scalar_modulus, cuda_device)
+    P = ops.encode_points(pts, cuda_device)
+    got = dec(cuda_msm.msm_pippenger_cuda(s, P, curve, signed, chunk=256))
+    assert got == dec(msm_pippenger_plain(s, P, curve, signed))
+    assert got == dec(pippenger_msm_model(s, P, curve, signed, 256))
+    assert got == msm_reference(s, P, curve)
+
+
+def test_pippenger_kernel_counts_as_itself(cuda_device):  # noqa: F811
+    """A kernel-4 call moves `pippenger_launches` alone and a kernel-5 call
+    `pippenger_u4_launches` alone, over several chunks: never the counts of
+    the table build and the fixed-base MSM whose code they run."""
+    sc, pts = _adversarial(BN254_G1, 300, seed=9)
+    names = ("launches", "fixed_launches", "table_launches", "pippenger_launches",
+             "pippenger_u4_launches")
+    for signed, moved in ((True, "pippenger_launches"),
+                          (False, "pippenger_u4_launches")):
+        before = {k: getattr(cuda_msm, k) for k in names}
+        _run(lambda s, P, c: cuda_msm.msm_pippenger_cuda(s, P, c, signed, chunk=128),
+             BN254_G1, sc, pts, cuda_device)
+        after = {k: getattr(cuda_msm, k) for k in names}
+        assert {k: after[k] - before[k] for k in names} == {
+            k: int(k == moved) for k in names}
+
+
+def test_pippenger_kernel_rejects_jacobian_bases(cuda_device):  # noqa: F811
+    sc, pts = _adversarial(BN254_G1, 16, seed=4)
+    ops = jacobian_ops("bn254")
+    X, Y, Z = ops.encode_points(pts, cuda_device)
+    Z = Z.clone()
+    Z[2] = X[2]  # a base with Z != 0, 1
+    s = encode_scalars(sc, BN254_G1.scalar_modulus, cuda_device)
+    with pytest.raises(ValueError):
+        cuda_msm.msm_pippenger_cuda(s, (X, Y, Z), BN254_G1)
+
+
+def test_pippenger_kernel_scratch_is_one_chunks(cuda_device):  # noqa: F811
+    """One 2^20-base call of kernel 4 in chunks of 2^18 allocates at most
+    `pippenger_scratch_bytes` of its chunks (each buffer rounded to the
+    allocator's 512 bytes), less than the whole width's table alone, and
+    equals the bucket kernel.  The bases are 1,024 random points repeated
+    (duplicates are exact)."""
+    from mira_tpu_torch import _build
+
+    n, chunk = 1 << 20, 1 << 18
+    sc, pts = _adversarial(BN254_G1, 1024, seed=20)
+    ops = jacobian_ops("bn254")
+    P = tuple(c.repeat(n // 1024, 1) for c in ops.encode_points(pts, cuda_device))
+    rng = np.random.default_rng(20)
+    r = BN254_G1.scalar_modulus
+    s = encode_scalars([int.from_bytes(rng.bytes(32), "little") % r for _ in range(n)],
+                       r, cuda_device)
+    nwin = pippenger_windows(254, True)
+    nparts = cuda_msm.FIXED_BLOCK * sum(
+        _build.lib().mira_msm_fixed_blocks(0, 5, nc, nwin)
+        for _, nc in cuda_msm.pippenger_chunks(n, chunk))
+    bound = cuda_msm.pippenger_scratch_bytes(nwin, chunk, nparts) + 16 * 512
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = cuda_msm.msm_pippenger_cuda(s, P, BN254_G1, True, chunk)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= bound < n * 1024
+
+    def dec(o):
+        return ops.decode_points(tuple(c[None] for c in o))[0]
+
+    assert dec(out) == dec(cuda_msm.msm_cuda(s, P, BN254_G1))

@@ -2,9 +2,11 @@
 (ops/msm.py: kernels 4 and 5, the shared-Horner Pippenger; kernels 6 and 7,
 the per-lane double-and-add) against mira_tpu's native and host MSMs, the
 routes mira_tpu pins equal to its Pallas kernels (their interpret mode takes
-minutes); the `msm(method=)` dispatcher; and CommitmentKey(generic_method=)
-on a k=8 key, with the same commitment for every method and as mira_tpu's.
-Exact equality throughout."""
+minutes); `pippenger_msm_model`, kernels 4 and 5's chunked algorithm (a w = 5
+table per chunk of bases, window sums added over the chunks, one Horner),
+against both; the `msm(method=)` dispatcher; and
+CommitmentKey(generic_method=) on a k=8 key, with the same commitment for
+every method and as mira_tpu's.  Exact equality throughout."""
 
 import random
 
@@ -26,6 +28,8 @@ from mira_tpu_torch.ops.msm import (
     METHODS,
     encode_scalars,
     msm,
+    msm_pippenger_plain,
+    pippenger_msm_model,
     pippenger_windows,
     signed_digits,
     unsigned_digits,
@@ -84,6 +88,73 @@ def test_plain_engine_small_cases_match_mira_host_msm(method):
                     ([16, 16, 5], [P, P, ident])):
         want = msm_host(sc, [to_mira(q) for q in pts])
         assert to_plain(_run(method, curve, sc, pts)) == to_plain(want), (sc, pts)
+
+
+def _decode(curve, out):
+    return jacobian_ops(curve.name).decode_points(tuple(c[None] for c in out))[0]
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+@pytest.mark.parametrize("signed", [True, False], ids=["signed", "u4"])
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_pippenger_model_matches_plain_and_mira(chunk, signed, curve):
+    """Kernels 4/5's chunked algorithm at chunks of 1, 3 and 8 bases over
+    6, 11 and 19 bases (three to six chunks, the last one short): a
+    duplicate base and an opposite pair across chunk borders, an opposite
+    pair inside one, two identity lanes, the edge scalars of `_input`,
+    against the plain version and mira_tpu's native MSM on the same seeded
+    inputs."""
+    n = {1: 6, 3: 11, 8: 19}[chunk]
+    sc, pts = _input(curve, 19, seed=100 + chunk)
+    pts[3] = pts[1]
+    pts[2] = pts[0].neg()
+    pts[7] = pts[8].neg()
+    keep = list(range(n - 2)) + [17, 18]  # the identity lanes last
+    sc, pts = [sc[i] for i in keep], [pts[i] for i in keep]
+    s = encode_scalars(sc, curve.scalar_modulus)
+    P = jacobian_ops(curve.name).encode_points(pts)
+    got = _decode(curve, pippenger_msm_model(s, P, curve, signed, chunk))
+    assert got == _decode(curve, msm_pippenger_plain(s, P, curve, signed))
+    assert to_plain(got) == to_plain(msm_native(sc, [to_mira(q) for q in pts]))
+
+
+@pytest.mark.parametrize("signed", [True, False], ids=["signed", "u4"])
+@pytest.mark.parametrize("chunk", [1, 2, 3])
+def test_pippenger_model_small_cases_match_mira_host_msm(chunk, signed):
+    """`test_plain_engine_small_cases_match_mira_host_msm`'s cases through
+    the model: P + P, P + (-P) and digit 16 on equal bases beside an
+    identity base, each pair in one chunk or split across two."""
+    curve = BN254_G1
+    ops = jacobian_ops(curve.name)
+    P = AffinePoint.random(curve, random.Random(3))
+    ident = AffinePoint.identity(curve)
+    for sc, pts in (([1, 1], [P, P]), ([1, 1], [P, P.neg()]),
+                    ([16, 16, 5], [P, P, ident])):
+        want = msm_host(sc, [to_mira(q) for q in pts])
+        got = _decode(curve, pippenger_msm_model(
+            encode_scalars(sc, curve.scalar_modulus), ops.encode_points(pts),
+            curve, signed, chunk))
+        assert to_plain(got) == to_plain(want), (sc, pts)
+
+
+def test_pippenger_chunks_cover_the_bases():
+    """The chunks of kernels 4 and 5: consecutive, at most `chunk` bases,
+    covering every base once; the scratch of a call is set by its largest
+    chunk, not by its width; a chunk below 1 raises."""
+    from mira_tpu_torch.ops import cuda_msm
+
+    for n, chunk in ((1, 1), (5, 2), (255, 256), (256, 256), (257, 256),
+                     (768, 256), (1 << 21, 1 << 19)):
+        parts = cuda_msm.pippenger_chunks(n, chunk)
+        assert [c0 for c0, _ in parts] == list(range(0, n, chunk))
+        assert sum(nc for _, nc in parts) == n
+        assert all(1 <= nc <= chunk for _, nc in parts)
+    assert cuda_msm.pippenger_chunks(0, 4) == []
+    with pytest.raises(ValueError):
+        cuda_msm.pippenger_chunks(8, 0)
+    # a 2^20-base call in chunks of 2^18 (four chunks' partials) needs less
+    # than the whole width's table alone
+    assert cuda_msm.pippenger_scratch_bytes(52, 1 << 18, 4 * 1536) < (1 << 20) * 1024
 
 
 def test_recoding_edges():
