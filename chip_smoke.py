@@ -45,13 +45,15 @@ generic-base MSM engines (kernels 4-7):
   at a few hundred points on both curves, and timed at the mesh path's
   widths on BN254: 2^17 (the cross-term width; against one result of the
   bucket MSM's plain version) and 2^21 (the SPS commit width; against the
-  bucket kernel and the host MSM); kernels 4 and 5 also per phase (table,
-  recode, accumulate, finish), with the peak scratch of a call, at 2^21 in
+  bucket kernel and the host MSM); each also per phase (its C calls:
+  kernels 4-6 table, recode, accumulate, finish; kernel 7 kernel 1's sort,
+  accumulate, reduce, finish), with the peak scratch of a call, kernel 7
+  also on kernel 4's route beside its own; kernels 4 and 5 at 2^21 in
   chunks of 2^18, 2^19 and 2^20 bases, and against the host MSM at one
   base either side of their chunk and at three chunks;
 - the k=17 path's decider, verify(strict=True), once per engine of
-  kernels 5-7 (CommitmentKey.generic_method), so that each engine's kernel
-  makes the decider's commitments;
+  kernels 5-7 (CommitmentKey.generic_method), so that each engine's kernel,
+  and no other MSM kernel, makes the decider's commitments;
 - the mesh path: a second IVC of the k=17 path's public parameters runs two
   fold_step(mesh=...) on a mesh of one (NCCL, world 1), every commit a
   sharded MSM through kernel 4 and the cross terms of the rank's row range
@@ -74,9 +76,9 @@ build (kernel 3b) is held to its plain version at N = 1, 2, 255 and at a
 width of three blocks and five lanes whose blocks hold no, one and only
 identity lanes; the fold evaluator (kernel 2) on every row and on row
 ranges (ends off the block, one row, the last rows).  Where a copy of the
-previous sources (commit 9e88700) lies at PREV_CSRC (git-ignored), their
-design of kernels 4 and 5 is built beside this tree's and timed in turns
-with it.
+previous sources (commit 4c60694) lies at PREV_CSRC (git-ignored), their
+per-lane design of kernels 6 and 7 is built beside this tree's and timed
+in turns with it.
 
 Kernel launches are counted over each path.  The keys of both paths come
 from one background thread started right after the build (the native
@@ -124,16 +126,21 @@ ENGINES = {
     "pippenger": ("msm_pippenger", "msm_pippenger.cu", "mira_tpu/ops/pallas_msm.py:486"),
     "pippenger-u4": ("msm_pippenger_u4", "msm_pippenger.cu",
                      "mira_tpu/ops/pallas_msm.py:282"),
-    "window": ("msm_window", "msm_lane.cu", "mira_tpu/ops/pallas_msm.py:108"),
-    "lane": ("msm_lane", "msm_lane.cu", "mira_tpu/ops/pallas_msm.py:862"),
+    "window": ("msm_window", "msm_pippenger.cu", "mira_tpu/ops/pallas_msm.py:108"),
+    "lane": ("msm_lane", "msm_bucket.cu", "mira_tpu/ops/pallas_msm.py:862"),
 }
 PIPPENGER_METHODS = ("pippenger", "pippenger-u4")
-ENGINE_REPS = {"pippenger": 5, "pippenger-u4": 5, "window": 3, "lane": 2}
-# kernels 4 and 5 run the code of kernels 3b and 3 over chunks of bases
+ENGINE_REPS = {"pippenger": 5, "pippenger-u4": 5, "window": 5, "lane": 5}
+# kernels 4-6 run the code of kernels 3b and 3 over chunks of bases (kernel
+# 6 as kernel 5 does), kernel 7 kernel 1's over parts of them
 PIPPENGER_SOURCES = ["mira_tpu_torch/csrc/msm_pippenger.cu",
                      "mira_tpu_torch/csrc/fixed_table.cu",
                      "mira_tpu_torch/csrc/msm_fixed.cu",
                      "mira_tpu_torch/csrc/msm_common.cuh"]
+ENGINE_SOURCES = {"pippenger": PIPPENGER_SOURCES, "pippenger-u4": PIPPENGER_SOURCES,
+                  "window": PIPPENGER_SOURCES,
+                  "lane": ["mira_tpu_torch/csrc/msm_bucket.cu",
+                           "mira_tpu_torch/csrc/msm_common.cuh"]}
 PIPPENGER_CHUNKS = (1 << 18, 1 << 19, 1 << 20)  # chunk sizes timed at 2^21
 # kernels 4 and 5's edge cases in chunks of this many bases (their plain
 # versions run on the CPU): one base either side of a chunk, three chunks
@@ -281,74 +288,61 @@ def peak_bytes(torch, fn) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-# The previous design of kernels 4 and 5 (commit 9e88700: a thread per chunk
-# of points with a table of 16 XYZZ multiples in local memory and full
-# additions into window accumulators in device memory), for a paired timing
-# where a copy of its sources lies in the repository's ignored build
-# directory: unpack `git archive 9e88700 mira_tpu_torch/csrc` into
-# mira_tpu_torch/build/prev.
+# The previous design of kernels 6 and 7 (commit 4c60694: csrc/msm_lane.cu,
+# a thread per lane running its own double-and-add over the scalar's bits,
+# kernel 6 with a table of 15 XYZZ multiples in local memory, then the lanes
+# summed on the card), for a paired timing where a copy of its sources lies
+# in the repository's ignored build directory: unpack
+# `git archive 4c60694 mira_tpu_torch/csrc` into mira_tpu_torch/build/prev.
 PREV_CSRC = os.path.join("mira_tpu_torch", "build", "prev", "mira_tpu_torch", "csrc")
-PREV_COMMIT = "9e88700"
+PREV_COMMIT = "4c60694"
+PREV_LANE_BLOCK = 128  # lanes per block of that design (its LANE_T)
 
 
 def prev_kernels(root: str):
-    """{"msm_pippenger": fn(scalars, points, curve, signed)} of the previous
-    sources under PREV_CSRC, built by nvcc into their own library, or None
-    when that copy is absent.  Its C interface as it was: min(32,768, N / 4)
-    threads, the (nwin, threads) window accumulators and the reduce's
-    levels in the caller's scratch, and the signed digits' carry thresholds
-    (`carry_thresholds`)."""
+    """{method: fn(scalars, points, curve)} for "window" and "lane" of the
+    previous sources under PREV_CSRC, built by nvcc into their own library,
+    or None when that copy is absent.  Its C interface as it was: one
+    XYZZ partial sum per block of 128 lanes in the caller's scratch."""
     import ctypes
 
-    import numpy as np
     import torch
 
     from mira_tpu_torch import _build
     from mira_tpu_torch.fields.limbs import NUM_WORDS
-    from mira_tpu_torch.ops import cuda_msm
-    from mira_tpu_torch.ops.msm import PIPPENGER_WINDOW, pippenger_windows
+    from mira_tpu_torch.ops.msm import LANE_WINDOWS
 
     src = os.path.join(root, PREV_CSRC)
     if not os.path.isdir(src):
         return None
-    so = os.path.join(_build.BUILD, "libprev_pippenger.so")
+    so = os.path.join(_build.BUILD, "libprev_lane.so")
     if not os.path.exists(so):
         os.makedirs(_build.BUILD, exist_ok=True)
-        report = _build._build(so, [os.path.join(src, "msm_pippenger.cu")])
+        report = _build._build(so, [os.path.join(src, "msm_lane.cu")])
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  previous ptxas: {line.strip()}")
     lib = ctypes.CDLL(so)
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.mira_msm_pippenger.argtypes = [I_, I_, P_, P_, P_, P_, I_, I_, I_, P_, P_,
-                                       P_, P_, P_, P_]
-    lib.mira_msm_pippenger.restype = I_
-    thresholds = {}
+    lib.mira_msm_lane.argtypes = [I_, I_, P_, P_, P_, P_, I_, I_, P_, P_, P_]
+    lib.mira_msm_lane.restype = I_
 
-    def msm_pippenger(scalars, points, curve, signed):
-        X, Y, Z = points
-        n, dev = scalars.shape[0], scalars.device
-        nwin = pippenger_windows(curve.scalar_modulus.bit_length(), signed)
-        nchunks = max(1, min(32768, -(-n // 4)))
-        if signed and nwin not in thresholds:
-            thresholds[nwin] = torch.from_numpy(cuda_msm.carry_thresholds(
-                nwin, PIPPENGER_WINDOW).view(np.int32)).to(dev)
-        thr = thresholds[nwin] if signed else scalars
+    def engine(window):
+        def msm_lane(scalars, points, curve):
+            X, Y, Z = points
+            n, dev = scalars.shape[0], scalars.device
+            partial = torch.empty(-(-n // PREV_LANE_BLOCK), 4 * NUM_WORDS,
+                                  dtype=torch.int32, device=dev)
+            out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
+            ptr = torch.Tensor.data_ptr
+            _build.check(lib.mira_msm_lane(
+                _build.field_id(curve.base_modulus), window, ptr(scalars), ptr(X),
+                ptr(Y), ptr(Z), n, curve.scalar_modulus.bit_length(), ptr(partial),
+                ptr(out), _build.stream_ptr(dev)), "previous msm_lane")
+            return (out[0], out[1], out[2])
+        return msm_lane
 
-        def xyzz(m):
-            return torch.empty(max(1, m), 4 * NUM_WORDS, dtype=torch.int32, device=dev)
-
-        acc, ws = xyzz(nwin * nchunks), xyzz(nwin)
-        partial = xyzz(cuda_msm.reduce_tmp_points(nwin, nchunks))
-        out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
-        ptr = torch.Tensor.data_ptr
-        _build.check(lib.mira_msm_pippenger(
-            _build.field_id(curve.base_modulus), int(signed), ptr(scalars), ptr(X),
-            ptr(Y), ptr(Z), n, nwin, nchunks, ptr(thr), ptr(acc), ptr(partial),
-            ptr(ws), ptr(out), _build.stream_ptr(dev)), "previous msm_pippenger")
-        return (out[0], out[1], out[2])
-
-    return {"msm_pippenger": msm_pippenger}
+    return {method: engine(w) for method, w in LANE_WINDOWS.items()}
 
 
 def fixed_table_products(n: int, window: int, curve) -> dict:
@@ -1604,28 +1598,64 @@ def check_msm_engines_small(torch, dev, rng):
         "plain == host on both curves (exact)")
 
 
-def pippenger_timings(torch, method, s, P, curve, reps, prev, chunks=()):
-    """Kernel 4 or 5 beyond its time: its per-phase times (table, recode,
-    accumulate, finish, summed over the chunks), the peak scratch of one
-    call, with `prev` its previous design's time in turns with it (which
-    must agree), and its time and scratch at each chunk size of `chunks`."""
+def engine_phases(method, s, P, curve):
+    """The C calls of one call of engine `method` (ops/cuda_msm.py):
+    kernels 4 and 5's `pippenger_phases`, kernels 6 and 7's `lane_phases`
+    (one part of the bases at these widths)."""
     from mira_tpu_torch.ops import cuda_msm
+    from mira_tpu_torch.ops.msm import LANE_WINDOWS
 
-    signed = method == "pippenger"
-    out = {"chunk": cuda_msm.PIPPENGER_CHUNK,
-           "phases_ms": timed_phases(
-               torch, cuda_msm.pippenger_phases(s, P, curve, signed)[0], reps),
-           "scratch_bytes": peak_bytes(
-               torch, lambda: cuda_msm.msm_pippenger_cuda(s, P, curve, signed))}
-    if prev is not None:
-        old = prev["msm_pippenger"](s, P, curve, signed)
-        new = cuda_msm.msm_pippenger_cuda(s, P, curve, signed)
-        if point_ints(decode_one(curve, old)) != point_ints(decode_one(curve, new)):
+    if method in PIPPENGER_METHODS:
+        return cuda_msm.pippenger_phases(s, P, curve, method == "pippenger")[0]
+    return [ph for phases, _ in cuda_msm.lane_phases(s, P, curve, LANE_WINDOWS[method])
+            for ph in phases]
+
+
+def run_route(phases_out):
+    """Make the C calls of ([(phase, call)], out) in order; returns out."""
+    from mira_tpu_torch import _build
+
+    phases, out = phases_out
+    for name, call in phases:
+        _build.check(call(), name)
+    return out
+
+
+def engine_extras(torch, method, s, P, curve, reps, prev, chunks=()):
+    """An engine beyond its time: its per-phase times (summed over the
+    chunks), the peak scratch of one call; with `prev` (kernels 6 and 7's
+    previous design) its time in turns with that design's, whose result
+    must agree; kernel 7 also its time and peak scratch on its own route
+    (kernel 1's C calls) and on kernel 4's, in turns, whose results must
+    agree; and with `chunks` (kernels 4 and 5) its time and scratch at each
+    chunk size."""
+    from mira_tpu_torch.ops import cuda_msm
+    from mira_tpu_torch.ops.msm import msm
+
+    def call():
+        return msm(s, P, curve, method)
+
+    out = {"phases_ms": timed_phases(torch, engine_phases(method, s, P, curve), reps),
+           "scratch_bytes": peak_bytes(torch, call)}
+    if method != "lane":
+        out["chunk"] = cuda_msm.PIPPENGER_CHUNK
+    if prev is not None and method in prev:
+        old = prev[method](s, P, curve)
+        if point_ints(decode_one(curve, old)) != point_ints(decode_one(curve, call())):
             raise AssertionError(f"{method} n={s.shape[0]}: != the previous kernel")
         out["paired_ms"], out["prev_ms"] = paired(
-            lambda: cuda_msm.msm_pippenger_cuda(s, P, curve, signed),
-            lambda: prev["msm_pippenger"](s, P, curve, signed), reps)
+            call, lambda: prev[method](s, P, curve), reps)
+    if method == "lane":
+        routes = {"bucket": lambda: run_route(cuda_msm.bucket_phases(s, P, curve)),
+                  "pippenger": lambda: run_route(
+                      cuda_msm.pippenger_phases(s, P, curve, True))}
+        if len({tuple(point_ints(decode_one(curve, fn()))) for fn in routes.values()}) != 1:
+            raise AssertionError(f"lane n={s.shape[0]}: the two routes disagree")
+        bucket_ms, pippenger_ms = paired(routes["bucket"], routes["pippenger"], reps)
+        out["route_ms"] = {"bucket": bucket_ms, "pippenger": pippenger_ms}
+        out["route_scratch_bytes"] = {r: peak_bytes(torch, fn) for r, fn in routes.items()}
     if chunks:
+        signed = method == "pippenger"
         out["chunk_ms"] = {str(c): timed_cuda(lambda: cuda_msm.msm_pippenger_cuda(
             s, P, curve, signed, c), 3) for c in chunks}
         out["chunk_scratch_bytes"] = {str(c): peak_bytes(
@@ -1641,10 +1671,10 @@ def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21,
     on the same inputs (computed once), and each timed against its own plain
     version; at 2^21 (the SPS commit width, the key's points) against
     `host21`, the host MSM of (s21, P21), which the bucket kernel equals.
-    Kernels 4 and 5 also per phase, with their peak scratch, their previous
-    design (`prev`) in turns with them, and at 2^21 per chunk size
-    (`pippenger_timings`).  Returns {method: [entry at 2^17, entry at
-    2^21]}."""
+    Each also per phase, with its peak scratch, kernels 6 and 7 with their
+    previous design (`prev`) in turns with them, kernel 7 on both routes,
+    and kernels 4 and 5 at 2^21 per chunk size (`engine_extras`).  Returns
+    {method: [entry at 2^17, entry at 2^21]}."""
     from mira_tpu_torch.ops.msm import msm, plain_engine
 
     curve = ck.curve
@@ -1658,16 +1688,13 @@ def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21,
         err = max(err, max_abs_err(point_ints(decode_one(curve, plain)), want))
         if err:
             raise AssertionError(f"{method} 2^17: kernel or plain != msm_plain")
-        extra = {}
-        if method in PIPPENGER_METHODS:
-            extra = pippenger_timings(torch, method, s17, P17, curve,
-                                      ENGINE_REPS[method], prev)
+        extra = engine_extras(torch, method, s17, P17, curve, ENGINE_REPS[method], prev)
         out[method].append({"n": 1 << 17, "ms": ms, "plain_ms": plain_ms,
                             "bucket_plain_ms": plain17_ms, "max_abs_err": err,
                             **msm_bucket_bound(1 << 17, curve), **extra})
         log(f"{method} 2^17: {ms:.3f} ms (plain {plain_ms:.1f} ms); == the "
             "bucket MSM's plain version; bound "
-            f"{out[method][-1]['bound_ms']:.3f} ms{_pippenger_note(extra)}")
+            f"{out[method][-1]['bound_ms']:.3f} ms{_engine_note(extra)}")
     n, s, P, host = 1 << 21, s21, P21, host21
     for method in ENGINES:
         ms = timed_cuda(lambda: msm(s, P, curve, method), ENGINE_REPS[method])
@@ -1675,26 +1702,29 @@ def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21,
                           host)
         if err:
             raise AssertionError(f"{method} 2^21: kernel != bucket kernel == host")
-        extra = {}
-        if method in PIPPENGER_METHODS:
-            extra = pippenger_timings(torch, method, s, P, curve,
-                                      ENGINE_REPS[method], prev, PIPPENGER_CHUNKS)
+        extra = engine_extras(torch, method, s, P, curve, ENGINE_REPS[method], prev,
+                              PIPPENGER_CHUNKS if method in PIPPENGER_METHODS else ())
         out[method].append({"n": n, "ms": ms, "plain_ms": None, "max_abs_err": err,
                             **msm_bucket_bound(n, curve), **extra})
         log(f"{method} 2^21: {ms:.3f} ms; == bucket kernel == host MSM; bound "
-            f"{out[method][-1]['bound_ms']:.3f} ms{_pippenger_note(extra)}")
+            f"{out[method][-1]['bound_ms']:.3f} ms{_engine_note(extra)}")
     return out
 
 
-def _pippenger_note(extra: dict) -> str:
-    if not extra:
-        return ""
-    note = (f"; chunk {extra['chunk']}, phases "
+def _engine_note(extra: dict) -> str:
+    note = (f"; phases "
             f"{json.dumps({k: round(v, 3) for k, v in extra['phases_ms'].items()})}"
             f", peak scratch {extra['scratch_bytes'] / 2**20:.1f} MiB")
+    if "chunk" in extra:
+        note += f" in chunks of {extra['chunk']}"
     if "prev_ms" in extra:
         note += (f"; paired with the previous design's {extra['paired_ms']:.3f} "
                  f"vs {extra['prev_ms']:.3f} ms")
+    if "route_ms" in extra:
+        mib = {k: round(v / 2**20, 1) for k, v in extra["route_scratch_bytes"].items()}
+        note += (f"; by route, paired (ms) "
+                 f"{json.dumps({k: round(v, 3) for k, v in extra['route_ms'].items()})}"
+                 f", scratch (MiB) {json.dumps(mib)}")
     if "chunk_ms" in extra:
         mib = {k: round(v / 2**20, 1) for k, v in extra["chunk_scratch_bytes"].items()}
         note += (f"; by chunk size (ms) {json.dumps(extra['chunk_ms'])}, scratch "
@@ -1706,8 +1736,11 @@ def run_engine_deciders(torch, ivc):
     """The k=17 path's decider, verify(strict=True), once per engine of
     DECIDER_ENGINES: the keys' generic_method set to it, so that the decider's
     commitments (witness and error vectors, up to 2^21 points) go through
-    its kernel.  Returns {method: (seconds, counts)}."""
+    its kernel, and no other MSM kernel is launched.  Returns {method:
+    (seconds, counts)}."""
     keys = (ivc.pp.primary.ck, ivc.pp.secondary.ck)
+    msm_kernels = ["msm_bucket", "msm_fixed", "fixed_table"] + [
+        name for name, _, _ in ENGINES.values()]
     out = {}
     for method in DECIDER_ENGINES:
         name = ENGINES[method][0]
@@ -1720,6 +1753,10 @@ def run_engine_deciders(torch, ivc):
         secs = time.perf_counter() - t0
         counts = launch_counts()
         require_launched(counts, (name,), f"the decider with generic_method={method}")
+        others = {k: counts[k] for k in msm_kernels if k != name and counts[k]}
+        if others:
+            raise AssertionError(f"the decider with generic_method={method} "
+                                 f"launched other MSM kernels: {others}")
         out[method] = (secs, counts)
         log(f"decider with generic_method={method}: verify(strict=True) passed "
             f"in {secs:.3f} s; {name} launches {counts[name]}")
@@ -1880,7 +1917,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     prev = prev_build.result()
-    log(f"previous kernels 4 and 5 (commit {PREV_COMMIT}) for the paired timing: "
+    log(f"previous kernels 6 and 7 (commit {PREV_COMMIT}) for the paired timing: "
         f"{'built from ' + PREV_CSRC if prev else 'no copy at ' + PREV_CSRC + ', not timed'}")
     phase("build", t0)
     # the keys after the build, whose nvcc processes want every core: the
@@ -2136,16 +2173,15 @@ def main() -> int:
             launches = {"launches": mesh_counts[name],
                         "path": f"{MESH_STEPS} k={K} fold_step(mesh=) on a mesh of 1",
                         "launches_dryrun": dry_counts[name]}
-        extra = {}
-        if method in PIPPENGER_METHODS:
-            extra = {"sources": PIPPENGER_SOURCES, "phases_ms": at[0]["phases_ms"],
-                     "scratch_bytes": at[0]["scratch_bytes"],
-                     **{k: at[0][k] for k in ("paired_ms", "prev_ms") if k in at[0]}}
+        extra = {"sources": ENGINE_SOURCES[method], "phases_ms": at[0]["phases_ms"],
+                 "scratch_bytes": at[0]["scratch_bytes"],
+                 **{k: at[0][k] for k in ("paired_ms", "prev_ms") if k in at[0]}}
         kernels.append({
             "name": name, "route": "cuda", "source": f"mira_tpu_torch/csrc/{src}",
             "replaces": replaces, **launches,
             "max_abs_err": max([a["max_abs_err"] for a in at]
-                               + ([pippenger_err] if extra else [])),
+                               + ([pippenger_err] if method in PIPPENGER_METHODS
+                                  else [])),
             "ms": at[0]["ms"], "plain_ms": at[0]["plain_ms"],
             "bound_ms": at[0]["bound_ms"], "bound_by": at[0]["bound_by"],
             "library_ms": None, **extra,

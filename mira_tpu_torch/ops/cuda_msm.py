@@ -4,9 +4,11 @@ MSM (csrc/msm_fixed.cu), the port of `msm_pallas_fixed`; its multiples
 table (csrc/fixed_table.cu), the port of `precompute_fixed_table`; the
 shared-Horner Pippenger (csrc/msm_pippenger.cu over the table build and
 the accumulation of the fixed-base MSM), the port of
-`msm_pallas(method="pippenger" / "pippenger-u4")`; and the per-lane
-double-and-add (csrc/msm_lane.cu), the port of `msm_pallas(method="window")`
-and of its bit-serial kernel ("lane").
+`msm_pallas(method="pippenger" / "pippenger-u4")`; and the ports of the
+per-lane kernels of `msm_pallas(method="window")` and of its bit-serial
+kernel ("lane"), which share the doublings over the call instead: the
+first on the unsigned 4-bit Pippenger's C calls, the second on the bucket
+MSM's (`lane_phases`).
 
 ops/msm.py `msm(..., method=)` takes a CPU tensor to an engine's plain
 version and a CUDA tensor to its kernel here; `msm_fixed` and
@@ -24,8 +26,10 @@ import torch
 from ..curves.host import CurveParams
 
 from .. import _build
+from ..curves.torch_curve import jacobian_ops
 from ..fields.limbs import NUM_WORDS, limb_field
 from .msm import (
+    LANE_WINDOWS,
     PIPPENGER_WINDOW,
     U4_WINDOW,
     WINDOW,
@@ -42,13 +46,12 @@ fixed_launches = 0  # fixed-base MSM launches
 table_launches = 0  # multiples-table builds
 pippenger_launches = 0  # kernel 4 (signed 5-bit Pippenger) MSMs
 pippenger_u4_launches = 0  # kernel 5 (unsigned 4-bit Pippenger) MSMs
-window_launches = 0  # kernel 6 (per-lane 4-bit windows) MSMs
-lane_launches = 0  # kernel 7 (per-lane bit-serial) MSMs
+window_launches = 0  # kernel 6 ("window") MSMs, on kernel 5's C calls
+lane_launches = 0  # kernel 7 ("lane") MSMs, on kernel 1's C calls
 # bases per multiples table of kernels 4 and 5: at 2^21 bases on the H100,
 # chunks of 2^18, 2^19 and 2^20 took 71.2, 72.1 and 73.3 ms and 472, 828
-# and 1,596 MiB of scratch (chip_smoke.py `pippenger_timings`)
+# and 1,596 MiB of scratch (chip_smoke.py `engine_extras`)
 PIPPENGER_CHUNK = 1 << 18
-LANE_BLOCK = 128  # lanes per block of the per-lane kernel (csrc LANE_T)
 FIXED_WINDOWS = (5, 6)  # the windows the fixed-base kernels are built for
 _XYZZ_WORDS = 4 * NUM_WORDS
 RB_SPAN = 1024  # parts per block of csrc/msm_common.cuh window_reduce
@@ -64,9 +67,8 @@ def carry_thresholds(nwin: int, window: int = WINDOW) -> np.ndarray:
     for window k: the incoming carry of window k is 1 iff the scalar's low
     w*k bits exceed it.  A threshold of 2^256 or more (no carry can arrive)
     is clamped to 2^256 - 1.  The closed form of `signed_digits`' carries,
-    which the kernels thread from window to window instead; chip_smoke.py's
-    paired timing of kernel 4's thread-per-chunk design (commit 9e88700)
-    passes it to that design's C interface."""
+    which the kernels thread from window to window instead; the tests hold
+    the recodings to it."""
     out = np.zeros((nwin, NUM_WORDS), dtype=np.uint32)
     half = 1 << (window - 1)
     for w in range(nwin):
@@ -129,8 +131,6 @@ def _check_affine(Z: torch.Tensor, curve: CurveParams, what: str):
 
 
 def _identity(curve: CurveParams, dev):
-    from ..curves.torch_curve import jacobian_ops
-
     return jacobian_ops(curve.name).identity((), dev)
 
 
@@ -298,30 +298,73 @@ def pippenger_phases(scalars: torch.Tensor, points, curve: CurveParams,
     return phases, out
 
 
-def msm_lane_cuda(scalars: torch.Tensor, points, curve: CurveParams,
-                  window: int):
-    """Kernel 6 (window 4) or 7 (window 1, bit-serial), with the sum over
-    lanes on the card; ops/msm.py `msm_lane_plain` is its plain version."""
-    global window_launches, lane_launches
-    field = _build.field_id(curve.base_modulus)
-    if window not in (4, 1):
+def lane_parts(n: int, num_bits: int, records: int = BUCKET_MAX_RECORDS):
+    """Kernel 7's parts of its n bases: [(first base, bases)], consecutive
+    and none empty, the fewest parts of near-equal size each of whose
+    bases x num_windows(num_bits, bucket_window(bases)) records stays below
+    `records` (kernel 1's limit, `check_bucket_records`, unless a smaller
+    one is given).  One part up to ~2^26.9 bases at 254 bits."""
+    k = 1
+    while n:
+        m = -(-n // k)
+        parts = [(c0, min(m, n - c0)) for c0 in range(0, n, m)]
+        if all(nc * num_windows(num_bits, bucket_window(nc, num_bits)) < records
+               for _, nc in parts):
+            return parts
+        k += 1
+    return []
+
+
+def lane_phases(scalars: torch.Tensor, points, curve: CurveParams, window: int,
+                records: int = BUCKET_MAX_RECORDS):
+    """Kernel 6 (window 4) or 7 (window 1) as C calls, one part of the
+    bases at a time: yields ([(phase, call)], out) per part, each part's
+    scratch allocated when it is reached.  Kernel 6 is one part, kernel 5's
+    `pippenger_phases(signed=False)` (the unsigned 4-bit digits and the
+    1P..15P multiples of the TPU kernel, summed per window over the lanes
+    and joined by one Horner); kernel 7 is kernel 1's `bucket_phases` over
+    each of `lane_parts`, at the part's own window (no table of multiples,
+    as the TPU kernel keeps none).  Bases with N = 0 yield nothing."""
+    if window not in LANE_WINDOWS.values():
         raise ValueError(f"msm_lane_cuda: window {window} not in (4, 1)")
-    n, dev, (sc, X, Y, Z) = _check_msm_args(scalars, points, "msm_lane_cuda")
+    n = scalars.shape[0]
     if n == 0:
+        return
+    if window == 4:
+        yield pippenger_phases(scalars, points, curve, signed=False)
+        return
+    for c0, nc in lane_parts(n, curve.scalar_modulus.bit_length(), records):
+        rows = slice(c0, c0 + nc)
+        yield bucket_phases(scalars[rows], tuple(c[rows] for c in points), curve)
+
+
+def msm_lane_cuda(scalars: torch.Tensor, points, curve: CurveParams,
+                  window: int, records: int = BUCKET_MAX_RECORDS):
+    """Kernel 6 (window 4) or 7 (window 1, bit-serial); ops/msm.py
+    `msm_lane_plain`, the TPU kernels' per-lane double-and-add, is its
+    plain version.  scalars: (N, 8) plain words below the group order;
+    points: (X, Y, Z) (N, 8) Montgomery words, affine or identity (kernel 6
+    raises ValueError on others).  The calls of `lane_phases`, the parts'
+    results added by the complete Jacobian addition; `records` as in
+    `lane_parts`.  Returns a canonical Jacobian triple of (8,) tensors.
+    Counted as `window_launches` or `lane_launches` alone, never as the
+    kernels whose C calls it makes."""
+    global window_launches, lane_launches
+    _, dev, _ = _check_msm_args(scalars, points, "msm_lane_cuda")
+    total = None
+    for phases, out in lane_phases(scalars, points, curve, window, records):
+        for name, run in phases:
+            _build.check(run(), f"msm_lane {name}")
+        del phases  # the part's scratch, before the next part's
+        part = (out[0], out[1], out[2])
+        total = part if total is None else jacobian_ops(curve.name).add(total, part)
+    if total is None:  # N = 0: nothing launched
         return _identity(curve, dev)
-    partial = torch.empty(-(-n // LANE_BLOCK), _XYZZ_WORDS, dtype=torch.int32,
-                          device=dev)
-    out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
-    err = _build.lib().mira_msm_lane(
-        field, window, sc.data_ptr(), X.data_ptr(), Y.data_ptr(), Z.data_ptr(),
-        n, curve.scalar_modulus.bit_length(), partial.data_ptr(), out.data_ptr(),
-        _build.stream_ptr(dev))
-    _build.check(err, "msm_lane")
     if window == 4:
         window_launches += 1
     else:
         lane_launches += 1
-    return (out[0], out[1], out[2])
+    return total
 
 
 def fixed_table(points, curve: CurveParams, window: int) -> torch.Tensor:

@@ -18,11 +18,12 @@ each signed w-bit digit up in it, sums each window and joins the windows by
 Horner's rule.
 
 `msm_pippenger_plain` and `msm_lane_plain` are the plain versions of the
-other generic-base engines of mira_tpu's `msm_pallas` (csrc/msm_pippenger.cu,
-csrc/msm_lane.cu), and `msm(..., method=)` picks an engine by mira_tpu's
-method name, the plain version for a CPU tensor and the kernel for a CUDA
-one.  `pippenger_msm_model` is the Pippenger kernels' chunked algorithm on
-these tensors (a w = 5 table per chunk of bases, window sums added over the
+other generic-base engines of mira_tpu's `msm_pallas` (csrc/msm_pippenger.cu;
+ops/cuda_msm.py `msm_lane_cuda` on the C calls of kernels 5 and 1), and
+`msm(..., method=)` picks an engine by mira_tpu's method name, the plain
+version for a CPU tensor and the kernel for a CUDA one.
+`pippenger_msm_model` is the Pippenger kernels' chunked algorithm on these
+tensors (a w = 5 table per chunk of bases, window sums added over the
 chunks, one Horner), as `bucket_msm_model` and `fixed_table_model` are
 kernel 1's and kernel 3b's.
 """
@@ -478,11 +479,13 @@ def msm_fixed_plain(scalars: torch.Tensor, table: torch.Tensor,
 
 
 # -- generic-base engines: shared-Horner Pippenger and per-lane MSMs -----------
-# The plain versions of csrc/msm_pippenger.cu (kernels 4 and 5) and
-# csrc/msm_lane.cu (kernels 6 and 7), one step of the TPU kernel each,
-# vectorised over lanes.  Bases are affine or the identity (Z in {0, 1});
-# every point operation is the complete one, so duplicate and opposite bases
-# are exact too.
+# The plain versions of kernels 4 and 5 (csrc/msm_pippenger.cu) and 6 and 7
+# (ops/cuda_msm.py `msm_lane_cuda`), one step of the TPU kernel each,
+# vectorised over lanes: for kernels 6 and 7 the TPU kernels' per-lane
+# double-and-add, which the card's routes do not share, so that their
+# equality on the card is an independent check.  Bases are affine or the
+# identity (Z in {0, 1}); every point operation is the complete one, so
+# duplicate and opposite bases are exact too.
 
 PIPPENGER_WINDOW = 5  # kernel 4: signed 5-bit digits, table 1P..16P
 U4_WINDOW = 4  # kernel 5: unsigned 4-bit digits, table 1P..15P
@@ -606,7 +609,7 @@ def msm_lane_plain(scalars: torch.Tensor, points, curve: CurveParams,
     nwin = -(-curve.scalar_modulus.bit_length() // window)
     digits = unsigned_digits(scalars, nwin, window)
     P = ops.lz(points)
-    tab = [P]  # tab[d] = (d + 1) P, as kernel 6 builds it
+    tab = [P]  # tab[d] = (d + 1) P, as the TPU's kernel 6 builds it
     for d in range(1, (1 << window) - 1):
         tab.append(ops.ldouble(tab[d // 2]) if d % 2 else ops.ladd(tab[d - 1], P))
     T = _stack(lf, tab)

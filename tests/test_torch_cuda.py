@@ -21,6 +21,7 @@ from mira_tpu_torch.ops.msm import (
     encode_scalars,
     msm,
     msm_fixed_plain,
+    msm_lane_plain,
     msm_pippenger_plain,
     msm_plain,
     pippenger_msm_model,
@@ -646,3 +647,64 @@ def test_pippenger_kernel_scratch_is_one_chunks(cuda_device):  # noqa: F811
         return ops.decode_points(tuple(c[None] for c in o))[0]
 
     assert dec(out) == dec(cuda_msm.msm_cuda(s, P, BN254_G1))
+
+
+# -- kernels 6 and 7: kernel 5's and kernel 1's C calls, kernel 7's parts -----
+MSM_COUNTERS = ("launches", "fixed_launches", "table_launches", "pippenger_launches",
+                "pippenger_u4_launches", "window_launches", "lane_launches")
+
+
+@pytest.mark.parametrize("window, moved", [(4, "window_launches"),
+                                           (1, "lane_launches")])
+def test_lane_kernels_count_as_themselves(window, moved, cuda_device):  # noqa: F811
+    """A kernel-6 call moves `window_launches` alone and a kernel-7 call
+    `lane_launches` alone, kernel 7 also over five parts of its bases:
+    never the counts of kernels 1, 3, 3b, 4 or 5, whose C calls they
+    make."""
+    sc, pts = _adversarial(BN254_G1, 300, seed=11)
+    for records in (cuda_msm.BUCKET_MAX_RECORDS, 4096):
+        before = {k: getattr(cuda_msm, k) for k in MSM_COUNTERS}
+        _run(lambda s, P, c: cuda_msm.msm_lane_cuda(s, P, c, window, records),
+             BN254_G1, sc, pts, cuda_device)
+        after = {k: getattr(cuda_msm, k) for k in MSM_COUNTERS}
+        assert {k: after[k] - before[k] for k in MSM_COUNTERS} == {
+            k: int(k == moved) for k in MSM_COUNTERS}
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=IDS)
+@pytest.mark.parametrize("case, n", [("random", 120), ("opposite", 120),
+                                     ("identity", 120), ("equal", 120),
+                                     ("random", 300)])
+def test_lane_kernel_parts_match_plain(curve, case, n, cuda_device):  # noqa: F811
+    """Kernel 7 split into parts of 60 bases by a record limit of 4,096
+    passed to the wrapper: two parts whose results are opposite, the
+    identity and a point, or equal (the complete addition's doubling), and
+    five parts of random bases, against `msm_lane_plain` (the per-lane
+    double-and-add) and the host MSM."""
+    sc, pts = _adversarial(curve, n, seed=n + len(case))
+    if case == "opposite":
+        sc[60:], pts[60:] = sc[:60], [p.neg() for p in pts[:60]]
+    elif case == "identity":
+        sc[60:] = [0] * 60
+    elif case == "equal":
+        sc[60:], pts[60:] = sc[:60], pts[:60]
+    assert cuda_msm.lane_parts(n, 254, 4096) == [(c0, 60) for c0 in range(0, n, 60)]
+    got, s, P = _run(lambda s, P, c: cuda_msm.msm_lane_cuda(s, P, c, 1, 4096),
+                     curve, sc, pts, cuda_device)
+    assert got == _run(lambda s, P, c: msm_lane_plain(s, P, c, 1), curve, sc, pts,
+                       cuda_device)[0]
+    assert got == msm_reference(s, P, curve)
+    if case == "opposite":
+        assert got == AffinePoint.identity(curve)
+
+
+def test_window_kernel_rejects_jacobian_bases(cuda_device):  # noqa: F811
+    """Kernel 6 runs kernel 3b's table build, which takes affine or
+    identity bases only."""
+    sc, pts = _adversarial(BN254_G1, 16, seed=4)
+    X, Y, Z = jacobian_ops("bn254").encode_points(pts, cuda_device)
+    Z = Z.clone()
+    Z[2] = X[2]  # a base with Z != 0, 1
+    s = encode_scalars(sc, BN254_G1.scalar_modulus, cuda_device)
+    with pytest.raises(ValueError):
+        cuda_msm.msm_lane_cuda(s, (X, Y, Z), BN254_G1, 4)

@@ -4,9 +4,10 @@ the per-lane double-and-add) against mira_tpu's native and host MSMs, the
 routes mira_tpu pins equal to its Pallas kernels (their interpret mode takes
 minutes); `pippenger_msm_model`, kernels 4 and 5's chunked algorithm (a w = 5
 table per chunk of bases, window sums added over the chunks, one Horner),
-against both; the `msm(method=)` dispatcher; and
+against both; the `msm(method=)` dispatcher;
 CommitmentKey(generic_method=) on a k=8 key, with the same commitment for
-every method and as mira_tpu's.  Exact equality throughout."""
+every method and as mira_tpu's; and kernel 7's parts of its bases
+(`lane_parts`) within kernel 1's record limit.  Exact equality throughout."""
 
 import random
 
@@ -244,3 +245,35 @@ def test_commitment_key_routes_every_generic_commit(monkeypatch, k8_keys):
     with pytest.raises(ValueError):
         ck.generic_method = "pallas"
     assert ck.generic_method == "pippenger-u4"
+
+
+# the most bases kernel 1 takes in one call at 254 bits: c = 16, 17 windows,
+# n x 17 records below 2^31
+BUCKET_ONE_PART = ((1 << 31) - 1) // 17
+
+
+@pytest.mark.parametrize("n, records, nparts", [
+    (0, 1 << 31, 0), (1, 1 << 31, 1), (1 << 21, 1 << 31, 1),
+    (BUCKET_ONE_PART, 1 << 31, 1), (BUCKET_ONE_PART + 1, 1 << 31, 2),
+    (1 << 28, 1 << 31, 3), (120, 4096, 2), (300, 4096, 5), (301, 4096, 5)])
+def test_lane_parts_within_kernel_1s_record_limit(n, records, nparts):
+    """Kernel 7's parts (kernel 1's C calls over consecutive parts of the
+    bases): they cover [0, n) in order, none empty, each part's records at
+    its own window stay below the limit, and so pass `check_bucket_records`;
+    an n one past what one call of kernel 1 takes gives two parts."""
+    from mira_tpu_torch.ops import cuda_msm
+    from mira_tpu_torch.ops.msm import bucket_window, num_windows
+
+    parts = cuda_msm.lane_parts(n, 254, records)
+    assert len(parts) == nparts
+    assert [c0 for c0, _ in parts] == [sum(nc for _, nc in parts[:i])
+                                       for i in range(nparts)]
+    assert sum(nc for _, nc in parts) == n
+    for _, nc in parts:
+        nwin = num_windows(254, bucket_window(nc))
+        assert nc >= 1 and nc * nwin < records
+        cuda_msm.check_bucket_records(nc, nwin)
+    if n == BUCKET_ONE_PART + 1:
+        assert bucket_window(n) == 16
+        with pytest.raises(ValueError):
+            cuda_msm.check_bucket_records(n, num_windows(254, 16))
