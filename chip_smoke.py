@@ -26,10 +26,15 @@ Then three paths of the polynomial and hashing side, each at full size:
 - the NTT (ops/ntt.py): random vectors over BN254 Fr at n = 2^16, 2^20 and
   2^24 through the four-step kernel and, up to 2^20, the per-stage kernel,
   against the plain version (2^24: round trips, coset round trips and spot
-  values of a sparse input against a host evaluation);
+  values of a sparse input against a host evaluation); each size also by
+  device time (`device_ms`) and, below 2^21, on the four-step kernel's
+  other cut, and both engines by device time around the size where "auto"
+  switches;
 - the batched Poseidon sponge (ops/poseidon_device.py): 2-to-1 hashes of
   2^16 and 2^20 random pairs against the plain version and the host sponge,
-  and a Merkle tree of 2^20 leaves reduced level by level on the card;
+  and a Merkle tree of 2^20 leaves reduced level by level on the card, each
+  level also alone (hashes, the route the rule took, event and device
+  time);
 - ProtoGalaxy (nifs/protogalaxy.py) at k=17: satisfying traces of the
   k=17 path's primary step-folding circuit, made with its 2^21 key (three
   per fold: ProtoGalaxy needs L + 1 a power of two), folded into a new
@@ -75,10 +80,12 @@ recode, accumulate, reduce, finish); kernel 1 also at 2^21.  The table
 build (kernel 3b) is held to its plain version at N = 1, 2, 255 and at a
 width of three blocks and five lanes whose blocks hold no, one and only
 identity lanes; the fold evaluator (kernel 2) on every row and on row
-ranges (ends off the block, one row, the last rows).  Where a copy of the
-previous sources (commit 4c60694) lies at PREV_CSRC (git-ignored), their
-per-lane design of kernels 6 and 7 is built beside this tree's and timed
-in turns with it.
+ranges (ends off the block, one row, the last rows); kernel 8 on both of
+its cuts and on a batch, and kernel 10 on both of its routes forced and on
+either side of the rule's crossover.  Where a copy of the previous sources
+(commit 8680e54) lies at PREV_CSRC (git-ignored), their design of kernels 8
+and 10 is built beside this tree's and timed in turns with it at every
+shape of the NTT and Poseidon paths, each level of the tree included.
 
 Kernel launches are counted over each path.  The keys of both paths come
 from one background thread started right after the build (the native
@@ -97,6 +104,7 @@ non-zero without a result when no CUDA device is visible or when run
 outside a checkout of the repository.
 """
 
+import contextlib
 import json
 import multiprocessing
 import os
@@ -109,9 +117,11 @@ K = 17
 FOLD_STEPS = 3
 SEED = 20261016
 NTT_SIZES = (16, 20, 24)  # log n of the NTT path
-NTT_SWITCH_SIZES = (4, 6, 8, 10, 12, 14)  # log n where both engines are timed
+NTT_SWITCH_SIZES = (2, 3, 4, 5, 6, 7, 8, 10, 12, 14)  # log n where both engines are timed
 NTT_PLAIN_MAX = 20  # the largest of them that the plain version also runs
 POSEIDON_SIZES = (16, 20)  # log N of the Poseidon path; the last also the tree
+PG_NTT_SIZE = 16  # ProtoGalaxy's coset transforms at the k=17 path's fold
+POSEIDON_ROUTE_TIMED = 16  # tree levels of up to 2^16 hashes timed on both routes
 # Incoming traces of each ProtoGalaxy fold.  L + 1 must be a power of two:
 # with L = 2 the fold domain has a fourth point where every Lagrange weight
 # of the folded witness vanishes, and a gate with a constant term (the main
@@ -154,6 +164,7 @@ DECIDER_ENGINES = ("pippenger-u4", "window", "lane")
 # multiply-adds per second, taken as a quarter of the 67 TFLOP/s float32
 # figure (64 INT32 lanes per SM against 128 FP32 lanes at 2 flops per FMA).
 MEM_BYTES_PER_S = 3.35e12
+SLEEP_CYCLES_PER_S = 2.0e9  # above the card's clock, so a sleep lasts at least its time
 INT32_MAD_PER_S = 16.75e12
 # One CIOS Montgomery product of csrc/field.cuh: 8 x (8 + 8 + 1) = 136
 # 32x32->64-bit multiply-adds, two int32 mad (lo, hi) each.
@@ -182,6 +193,33 @@ def timed_cuda(fn, reps: int):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of `fn`: CUDA events around `reps` calls
+    queued behind a sleep on the card that outlasts twice their queueing, so
+    that the card runs them back to back and never waits for the host (the
+    event time of `timed_cuda` on a busy host includes such waits).
+    torch.profiler's kernel records, tried first on the card's machine,
+    lost launches, once all of a window's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queueing = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * queueing + 1e-3) * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -288,61 +326,84 @@ def peak_bytes(torch, fn) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-# The previous design of kernels 6 and 7 (commit 4c60694: csrc/msm_lane.cu,
-# a thread per lane running its own double-and-add over the scalar's bits,
-# kernel 6 with a table of 15 XYZZ multiples in local memory, then the lanes
-# summed on the card), for a paired timing where a copy of its sources lies
-# in the repository's ignored build directory: unpack
-# `git archive 4c60694 mira_tpu_torch/csrc` into mira_tpu_torch/build/prev.
+# The previous designs of kernels 8 and 10 (commit 8680e54: csrc/ntt_fourstep.cu,
+# one column a block through the bit reversal and a barrier per radix-2
+# stage, the mid twiddle as two table products; csrc/poseidon.cu, a thread
+# per hash alone), for a paired timing where a copy of their sources lies in
+# the repository's ignored build directory: unpack
+# `git archive 8680e54 mira_tpu_torch/csrc` into mira_tpu_torch/build/prev.
 PREV_CSRC = os.path.join("mira_tpu_torch", "build", "prev", "mira_tpu_torch", "csrc")
-PREV_COMMIT = "4c60694"
-PREV_LANE_BLOCK = 128  # lanes per block of that design (its LANE_T)
+PREV_COMMIT = "8680e54"
+PREV_SOURCES = ("ntt_fourstep.cu", "poseidon.cu")
 
 
 def prev_kernels(root: str):
-    """{method: fn(scalars, points, curve)} for "window" and "lane" of the
-    previous sources under PREV_CSRC, built by nvcc into their own library,
-    or None when that copy is absent.  Its C interface as it was: one
-    XYZZ partial sum per block of 128 lanes in the caller's scratch."""
+    """{"ntt_fourstep": fn(a, modulus, inverse=False), "poseidon": fn(values,
+    modulus)} of the previous sources under PREV_CSRC, built by nvcc into
+    their own library, or None when that copy is absent.  Their C interfaces
+    as they were: the four-step's two kernels over its own tables (twiddles
+    of both sub-transforms, the mid twiddle's two power tables) with a
+    scratch and an output buffer; the sponge with no route."""
     import ctypes
 
     import torch
 
     from mira_tpu_torch import _build
     from mira_tpu_torch.fields.limbs import NUM_WORDS
-    from mira_tpu_torch.ops.msm import LANE_WINDOWS
+    from mira_tpu_torch.ops import cuda_ntt, cuda_poseidon, ntt
 
     src = os.path.join(root, PREV_CSRC)
     if not os.path.isdir(src):
         return None
-    so = os.path.join(_build.BUILD, "libprev_lane.so")
+    so = os.path.join(_build.BUILD, "libprev_ntt_poseidon.so")
     if not os.path.exists(so):
         os.makedirs(_build.BUILD, exist_ok=True)
-        report = _build._build(so, [os.path.join(src, "msm_lane.cu")])
+        report = _build._build(so, [os.path.join(src, f) for f in PREV_SOURCES])
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  previous ptxas: {line.strip()}")
     lib = ctypes.CDLL(so)
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.mira_msm_lane.argtypes = [I_, I_, P_, P_, P_, P_, I_, I_, P_, P_, P_]
-    lib.mira_msm_lane.restype = I_
+    lib.mira_ntt_fourstep.argtypes = [I_, P_, P_, P_, I_, P_, P_, P_, P_, P_, I_, P_]
+    lib.mira_poseidon.argtypes = [I_, P_, P_, I_, I_, I_, I_, I_, P_, I_, P_]
+    lib.mira_ntt_fourstep.restype = lib.mira_poseidon.restype = I_
+    tables = {}
 
-    def engine(window):
-        def msm_lane(scalars, points, curve):
-            X, Y, Z = points
-            n, dev = scalars.shape[0], scalars.device
-            partial = torch.empty(-(-n // PREV_LANE_BLOCK), 4 * NUM_WORDS,
-                                  dtype=torch.int32, device=dev)
-            out = torch.empty(3, NUM_WORDS, dtype=torch.int32, device=dev)
-            ptr = torch.Tensor.data_ptr
-            _build.check(lib.mira_msm_lane(
-                _build.field_id(curve.base_modulus), window, ptr(scalars), ptr(X),
-                ptr(Y), ptr(Z), n, curve.scalar_modulus.bit_length(), ptr(partial),
-                ptr(out), _build.stream_ptr(dev)), "previous msm_lane")
-            return (out[0], out[1], out[2])
-        return msm_lane
+    def fourstep(a, modulus, inverse=False):
+        n, dev = a.shape[-2], a.device
+        log_n = n.bit_length() - 1
+        key = (modulus, log_n, inverse, str(dev))
+        if key not in tables:
+            l1 = log_n // 2
+            l2 = log_n - l1
+            w = ntt.get_omega(modulus, log_n, inverse)
+            tables[key] = tuple(t.contiguous() for t in (
+                ntt._twiddle_table(modulus, l2, inverse, str(dev)),
+                ntt._twiddle_table(modulus, l1, inverse, str(dev)),
+                ntt.power_table(modulus, w, 1 << l2, dev),
+                ntt.power_table(modulus, pow(w, 1 << l2, modulus), 1 << l1, dev)))
+        tw1, tw2, mid_a, mid_b = tables[key]
+        scale = cuda_ntt._scale(modulus, n, str(dev)) if inverse else None
+        tmp, out = torch.empty_like(a), torch.empty_like(a)
+        ptr = torch.Tensor.data_ptr
+        _build.check(lib.mira_ntt_fourstep(
+            _build.field_id(modulus), ptr(a), ptr(tmp), ptr(out), log_n, ptr(tw1),
+            ptr(tw2), ptr(mid_a), ptr(mid_b), None if scale is None else ptr(scale),
+            a.shape[0] if a.dim() == 3 else 1, _build.stream_ptr(dev)),
+            "previous ntt_fourstep")
+        return out
 
-    return {method: engine(w) for method, w in LANE_WINDOWS.items()}
+    def poseidon(values, modulus, t=3, rate=2, r_f=10, r_p=10):
+        n, length, dev = values.shape[0], values.shape[1], values.device
+        consts = cuda_poseidon._constants(modulus, t, rate, r_f, r_p, str(dev))
+        out = torch.empty(n, NUM_WORDS, dtype=torch.int32, device=dev)
+        _build.check(lib.mira_poseidon(
+            _build.field_id(modulus), values.data_ptr(), out.data_ptr(), n,
+            length, t, r_f, r_p, consts.data_ptr(), consts.shape[0],
+            _build.stream_ptr(dev)), "previous poseidon")
+        return out
+
+    return {"ntt_fourstep": fourstep, "poseidon": poseidon}
 
 
 def fixed_table_products(n: int, window: int, curve) -> dict:
@@ -938,6 +999,23 @@ def launch_counts():
             "msm_lane": cuda_msm.lane_launches}
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are measurements added to the NTT and Poseidon paths
+    (device times, the other cut, the previous design, each tree level
+    alone), not the paths' own: their counts are put back as they were, so
+    that the "ms lost" lines weigh the paths as before."""
+    from mira_tpu_torch.ops import cuda_ntt, cuda_poseidon
+
+    saved = (cuda_ntt.fourstep_launches, cuda_ntt.stage_launches,
+             cuda_poseidon.launches)
+    try:
+        yield
+    finally:
+        (cuda_ntt.fourstep_launches, cuda_ntt.stage_launches,
+         cuda_poseidon.launches) = saved
+
+
 def require_launched(counts: dict, names, path: str):
     """Fail unless every kernel of `names` was launched on `path`."""
     missing = [k for k in names if counts[k] <= 0]
@@ -1159,8 +1237,10 @@ def _field_vals(rng, n, p):
 def check_ntt_small(torch, dev, rng):
     """`ntt` on the card against `ntt_host` and `ntt_plain` for every log n
     in 1..14 over BN254 Fr (and log n = 1 over Fq, whose 2-adicity is 1), both
-    engines where the size admits them, forward and inverse; the reference's
-    known-answer vector (src/fft.rs:239-258); coset round trips."""
+    engines where the size admits them, the four-step kernel also on both of
+    its cuts (two and three passes) and on a batch of three, forward and
+    inverse; the reference's known-answer vector (src/fft.rs:239-258); coset
+    round trips."""
     from mira_tpu_torch.fields.limbs import limb_field
     from mira_tpu_torch.fields.params import BN254_FQ, BN254_FR
     from mira_tpu_torch.ops import cuda_ntt, ntt
@@ -1184,6 +1264,17 @@ def check_ntt_small(torch, dev, rng):
                     raise AssertionError(
                         f"ntt 2^{log_n} engine={engine} inverse={inverse}: "
                         f"kernel != plain on {(got != want).any(-1).sum()} rows")
+            if log_n < max(cuda_ntt.FOURSTEP_MIN_LOG, 3) or p != BN254_FR:
+                continue
+            rows = torch.stack([a, a.flip(0), lf.sub(a, a.roll(1, 0))])
+            want_rows = ntt.ntt_plain(rows, p, inverse)
+            for passes in (2, 3):
+                split = cuda_ntt.fourstep_split(log_n, passes)
+                if not (torch.equal(cuda_ntt._fourstep(a, p, inverse, split), want)
+                        and torch.equal(cuda_ntt._fourstep(rows, p, inverse, split),
+                                        want_rows)):
+                    raise AssertionError(f"ntt_fourstep 2^{log_n} split {split} "
+                                         f"inverse={inverse}: kernel != plain")
         if log_n in (4, 9, 12, 13):
             for engine in ("stage", "fourstep"):
                 back = ntt.coset_intt(ntt.coset_ntt(a, p, engine), p, engine)
@@ -1206,8 +1297,9 @@ def check_ntt_small(torch, dev, rng):
         if got != known:
             raise AssertionError(f"ntt known-answer vector, engine={engine}")
     log("ntt_stage, ntt_fourstep at log n = 1..14 (0, p - 1, repeated values; "
-        "forward, inverse, coset round trips; the known-answer vector): kernel "
-        "== plain == host (exact)")
+        "forward, inverse, coset round trips; the known-answer vector; "
+        "ntt_fourstep also on two and three passes from 2^3, one array and a "
+        "batch of three): kernel == plain == host (exact)")
 
 
 def host_sponge(vals, modulus, t, rate, r_f=10, r_p=10) -> int:
@@ -1229,9 +1321,12 @@ def host_sponge(vals, modulus, t, rate, r_f=10, r_p=10) -> int:
 def check_poseidon_small(torch, dev, rng):
     """`poseidon_hash_batch` on the card against the host sponge and the
     plain version for the (t, rate, L) cases of the reference's tests (and
-    t = 2, t = 4 and an empty input), N not a multiple of the block."""
+    t = 2, t = 4 and an empty input), N not a multiple of the block, each
+    case on both routes of kernel 10 forced; and both routes on either side
+    of the rule's crossover at t = 3.  Returns the crossover's batch."""
     from mira_tpu_torch.fields.limbs import limb_field
     from mira_tpu_torch.fields.params import BN254_FQ, BN254_FR
+    from mira_tpu_torch.ops import cuda_poseidon
     from mira_tpu_torch.ops.poseidon_device import (
         poseidon_hash_batch,
         poseidon_hash_batch_plain,
@@ -1252,11 +1347,35 @@ def check_poseidon_small(torch, dev, rng):
         want = poseidon_hash_batch_plain(flat, p, t=t, rate=rate)
         if not torch.equal(got, want):
             raise AssertionError(f"poseidon t={t} L={length}: kernel != plain")
+        for route in cuda_poseidon.ROUTES:
+            if not torch.equal(cuda_poseidon._launch(flat, p, t, rate, 10, 10, route),
+                               want):
+                raise AssertionError(f"poseidon t={t} L={length} route={route}: "
+                                     "kernel != plain")
         host = [host_sponge(v, p, t, rate) for v in vals[:8]]
         if lf.decode(got[:8]) != host:
             raise AssertionError(f"poseidon t={t} L={length}: kernel != host")
-    log(f"poseidon at (t, rate, L) = {[c[1:] for c in cases]}, N = {n}: kernel "
-        "== plain == host sponge (exact)")
+    p = BN254_FR
+    lf = limb_field(p)
+    sms = cuda_poseidon.card_sms(str(dev))
+    cross = cuda_poseidon.LANE_THREADS_PER_SM * sms // cuda_poseidon.lanes_per_hash(3)
+    if [cuda_poseidon.poseidon_route(m, 3, sms) for m in (cross, cross + 1)] != [
+            "lanes", "thread"]:
+        raise AssertionError("poseidon: the rule's crossover is not where expected")
+    for m in (cross, cross + 1):
+        flat = lf.from_plain(_random_plain(rng, 2 * m, dev)).reshape(m, 2, 8)
+        want = poseidon_hash_batch_plain(flat, p)
+        for route in cuda_poseidon.ROUTES:
+            if not torch.equal(cuda_poseidon._launch(flat, p, 3, 2, 10, 10, route),
+                               want):
+                raise AssertionError(f"poseidon N={m} route={route}: kernel != plain")
+    log(f"poseidon at (t, rate, L) = {[c[1:] for c in cases]}, N = {n}, on the "
+        f"rule's route and on both routes forced, and at t = 3 on both routes at "
+        f"N = {cross} and {cross + 1} (the rule's crossover: "
+        f"{cuda_poseidon.LANE_THREADS_PER_SM} lanes an SM x {sms} SMs / "
+        f"{cuda_poseidon.lanes_per_hash(3)} lanes a hash): kernel == plain == "
+        "host sponge (exact)")
+    return cross
 
 
 def words_err(got, want) -> int:
@@ -1264,9 +1383,11 @@ def words_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
-def run_ntt_path(torch, dev, rng):
-    """The NTT at full size over BN254 Fr through its entry points.  Returns
-    the per-size results of both kernels."""
+def run_ntt_path(torch, dev, rng, prev):
+    """The NTT at full size over BN254 Fr through its entry points, each
+    size also by device time (`device_ms`), below 2^21 on the four-step
+    kernel's other cut, and in turns with the previous design (`prev`, where its copy
+    is built).  Returns the per-size results of both kernels."""
     from mira_tpu_torch.fields.limbs import limb_field
     from mira_tpu_torch.fields.params import BN254_FR, field_params
     from mira_tpu_torch.ops import cuda_ntt, ntt
@@ -1275,19 +1396,27 @@ def run_ntt_path(torch, dev, rng):
     lf = limb_field(p)
     four, stage = [], []
     # both engines around the size where "auto" changes from the stage kernel
-    # to the four-step kernel (ops/ntt.py FOURSTEP_MIN)
+    # to the four-step kernel (ops/ntt.py FOURSTEP_MIN), by events and by
+    # device time
     switch = []
     for log_n in NTT_SWITCH_SIZES:
         a = lf.from_plain(_random_plain(rng, 1 << log_n, dev))
         if not torch.equal(ntt.ntt(a, p, engine="fourstep"),
                            ntt.ntt(a, p, engine="stage")):
             raise AssertionError(f"ntt 2^{log_n}: the engines disagree")
-        switch.append({
-            "log_n": log_n,
-            "fourstep_ms": timed_cuda(lambda: ntt.ntt(a, p, engine="fourstep"), 50),
-            "stage_ms": timed_cuda(lambda: ntt.ntt(a, p, engine="stage"), 50)})
+        f4 = lambda: ntt.ntt(a, p, engine="fourstep")
+        st = lambda: ntt.ntt(a, p, engine="stage")
+        e = {"log_n": log_n, "fourstep_ms": timed_cuda(f4, 50),
+             "stage_ms": timed_cuda(st, 50)}
+        with uncounted():
+            e["fourstep_device_ms"] = device_ms(f4, 20)
+            e["stage_device_ms"] = device_ms(st, 20)
+            if prev:
+                e["prev_device_ms"] = device_ms(
+                    lambda: prev["ntt_fourstep"](a, p), 20)
+        switch.append(e)
     log(f"ntt engines around FOURSTEP_MIN = {ntt.FOURSTEP_MIN} (means of 50 "
-        f"calls): {json.dumps(switch)}")
+        f"calls by events, of 20 by device time): {json.dumps(switch)}")
     for log_n in NTT_SIZES:
         n = 1 << log_n
         a = lf.from_plain(_random_plain(rng, n, dev))
@@ -1295,12 +1424,29 @@ def run_ntt_path(torch, dev, rng):
         # a transform of under a millisecond is timed over more calls, so that
         # one slow launch on a busy host does not decide the mean
         reps = 20 if log_n <= NTT_PLAIN_MAX else 5
-        ms = timed_cuda(lambda: ntt.ntt(a, p), reps)  # "auto": four-step here
-        entry = {"log_n": log_n, "ms": ms, "plain_ms": None,
+        fn = lambda: ntt.ntt(a, p)  # "auto": four-step here
+        ms = timed_cuda(fn, reps)
+        split = cuda_ntt.fourstep_split(log_n)
+        entry = {"log_n": log_n, "ms": ms, "plain_ms": None, "split": list(split),
                  **bound(2 * n * 32, ntt_products(log_n))}
+        err = 0
+        with uncounted():
+            entry["device_ms"] = device_ms(fn, reps)
+            if log_n < cuda_ntt.THREE_PASS_MIN_LOG:  # the other cut it takes
+                other = cuda_ntt.fourstep_split(log_n, 5 - len(split))
+                fo = lambda: cuda_ntt._fourstep(a, p, False, other)
+                entry["other_split"] = {"split": list(other),
+                                        "ms": timed_cuda(fo, reps),
+                                        "device_ms": device_ms(fo, reps)}
+                err = words_err(fo(), fn())
+            if prev:
+                fp = lambda: prev["ntt_fourstep"](a, p)
+                err = max(err, words_err(fp(), fn()))
+                entry["paired_ms"], entry["prev_ms"] = paired(fn, fp, reps)
+                entry["prev_device_ms"] = device_ms(fp, reps)
         if log_n <= NTT_PLAIN_MAX:
             want, entry["plain_ms"] = timed_once(lambda: ntt.ntt_plain(a, p))
-            entry["max_abs_err"] = words_err(ntt.ntt(a, p), want)
+            entry["max_abs_err"] = max(err, words_err(ntt.ntt(a, p), want))
             ms_s = timed_cuda(lambda: ntt.ntt(a, p, engine="stage"), reps)
             err_s = words_err(ntt.ntt(a, p, engine="stage"), want)
             inv = ntt.ntt(want, p, inverse=True)
@@ -1318,7 +1464,7 @@ def run_ntt_path(torch, dev, rng):
             # temporary: round trips, and spot values of a sparse input
             # against a host evaluation
             b = ntt.ntt(a, p)
-            err = words_err(ntt.ntt(b, p, inverse=True), a)
+            err = max(err, words_err(ntt.ntt(b, p, inverse=True), a))
             del b
             err = max(err, words_err(ntt.coset_intt(ntt.coset_ntt(a, p), p), a))
             nz = sorted(int(i) for i in rng.choice(n, size=300, replace=False))
@@ -1342,7 +1488,14 @@ def run_ntt_path(torch, dev, rng):
         if entry["max_abs_err"]:
             raise AssertionError(f"ntt 2^{log_n}: kernel != reference")
         four.append(entry)
-        log(f"ntt 2^{log_n}: four-step {ms:.3f} ms"
+        other = entry.get("other_split")
+        log(f"ntt 2^{log_n}: four-step {ms:.3f} ms, device {entry['device_ms']:.4f} "
+            f"ms on passes {split}"
+            + (f" (passes {other['split']}: {other['ms']:.3f} ms, device "
+               f"{other['device_ms']:.4f})" if other else "")
+            + (f"; paired {entry['paired_ms']:.3f} against the previous design's "
+               f"{entry['prev_ms']:.3f} ms (device {entry['prev_device_ms']:.4f})"
+               if prev else "")
             + (f", stage engine {stage[-1]['ms']:.3f} ms, plain "
                f"{entry['plain_ms']:.1f} ms" if log_n <= NTT_PLAIN_MAX else
                " (round trips, coset round trips and 2 x 64 spot values of a "
@@ -1359,23 +1512,31 @@ def run_ntt_path(torch, dev, rng):
                 lambda: cuda_ntt.stage_cuda(scratch, tw, half, p, out=scratch), 20)
             if err1:
                 raise AssertionError(f"ntt_stage at 2^{log_n}: kernel != plain")
+            with uncounted():
+                dev1 = device_ms(lambda: cuda_ntt.stage_cuda(scratch, tw, half, p,
+                                                             out=scratch), 20)
             stage.append({"log_n": log_n, "what": f"one stage (half = 2^{log_n // 2})",
-                          "launches_per_call": 1, "ms": ms1, "plain_ms": plain1,
-                          "max_abs_err": err1, **bound(2 * n * 32, n // 2)})
-            log(f"ntt_stage 2^{log_n}, one stage: {ms1:.4f} ms (plain {plain1:.1f} ms); "
-                f"bound {stage[-1]['bound_ms']:.4f} ms by {stage[-1]['bound_by']}")
+                          "launches_per_call": 1, "ms": ms1, "device_ms": dev1,
+                          "plain_ms": plain1, "max_abs_err": err1,
+                          **bound(2 * n * 32, n // 2)})
+            log(f"ntt_stage 2^{log_n}, one stage: {ms1:.4f} ms, device {dev1:.4f} ms "
+                f"(plain {plain1:.1f} ms); bound {stage[-1]['bound_ms']:.4f} ms by "
+                f"{stage[-1]['bound_by']}")
             del scratch, want1
         del a
     four[0]["engines_near_switch"] = switch
     return four, stage
 
 
-def run_poseidon_path(torch, dev, rng):
+def run_poseidon_path(torch, dev, rng, prev):
     """2-to-1 hashes (t = 3, rate = 2, r_f = r_p = 10) at full size through
     `poseidon_hash_batch`, and a Merkle tree of 2^20 leaves reduced level by
-    level on the card."""
+    level on the card; each shape and each level of the tree also by device
+    time (`device_ms`) and in turns with the previous design (`prev`,
+    where its copy is built), with the route the rule took."""
     from mira_tpu_torch.fields.limbs import limb_field
     from mira_tpu_torch.fields.params import BN254_FR
+    from mira_tpu_torch.ops import cuda_poseidon
     from mira_tpu_torch.ops.poseidon_device import (
         poseidon_hash_batch,
         poseidon_hash_batch_plain,
@@ -1383,13 +1544,32 @@ def run_poseidon_path(torch, dev, rng):
 
     p = BN254_FR
     lf = limb_field(p)
+    sms = cuda_poseidon.card_sms(str(dev))
+
+    def timings(x, reps):
+        """{route, ms, device_ms[, paired_ms, prev_ms, prev_device_ms]} of one
+        batch of 2-to-1 hashes; the previous design's result must agree."""
+        fn = lambda: poseidon_hash_batch(x, p)
+        out = {"route": cuda_poseidon.poseidon_route(x.shape[0], 3, sms),
+               "ms": timed_cuda(fn, reps)}
+        with uncounted():
+            out["device_ms"] = device_ms(fn, reps)
+            if prev:
+                fp = lambda: prev["poseidon"](x, p)
+                if not torch.equal(fp(), fn()):
+                    raise AssertionError(
+                        f"poseidon N={x.shape[0]}: != the previous kernel")
+                out["paired_ms"], out["prev_ms"] = paired(fn, fp, reps)
+                out["prev_device_ms"] = device_ms(fp, reps)
+        return out
+
     results = []
     for log_n in POSEIDON_SIZES:
         n = 1 << log_n
         pairs = lf.from_plain(_random_plain(rng, 2 * n, dev)).reshape(n, 2, 8)
-        ms = timed_cuda(lambda: poseidon_hash_batch(pairs, p), 5)
+        entry = {"log_n": log_n, **timings(pairs, 5)}
         got = poseidon_hash_batch(pairs, p)
-        want, plain_ms = timed_once(lambda: poseidon_hash_batch_plain(pairs, p))
+        want, entry["plain_ms"] = timed_once(lambda: poseidon_hash_batch_plain(pairs, p))
         err = words_err(got, want)
         lanes = [int(i) for i in rng.choice(n, size=min(256, n), replace=False)]
         sel = torch.tensor(lanes, device=dev)
@@ -1400,11 +1580,15 @@ def run_poseidon_path(torch, dev, rng):
         if err:
             raise AssertionError(f"poseidon 2^{log_n}: kernel != plain or host")
         b = bound(n * 3 * 32, n * poseidon_products(3, 10, 10, 2))
-        results.append({"log_n": log_n, "ms": ms, "plain_ms": plain_ms,
-                        "max_abs_err": err, **b})
-        log(f"poseidon 2^{log_n} 2-to-1 hashes: {ms:.3f} ms (plain {plain_ms:.1f} "
-            f"ms; 256 lanes == host sponge); bound {b['bound_ms']:.3f} ms by "
-            f"{b['bound_by']}")
+        entry.update(max_abs_err=err, **b)
+        results.append(entry)
+        log(f"poseidon 2^{log_n} 2-to-1 hashes ({entry['route']} route): "
+            f"{entry['ms']:.3f} ms, device {entry['device_ms']:.3f} ms"
+            + (f"; paired {entry['paired_ms']:.3f} against the previous design's "
+               f"{entry['prev_ms']:.3f} ms (device {entry['prev_device_ms']:.3f})"
+               if prev else "")
+            + f" (plain {entry['plain_ms']:.1f} ms; 256 lanes == host sponge); "
+            f"bound {b['bound_ms']:.3f} ms by {b['bound_by']}")
         del want
 
     def root(leaves, hash_fn):
@@ -1427,14 +1611,44 @@ def run_poseidon_path(torch, dev, rng):
               max_abs_err(lf.decode(root(small, poseidon_hash_batch)), level))
     if err:
         raise AssertionError("poseidon Merkle root: kernel != plain or host")
+    # each level alone, on the inputs the tree gives it
+    levels, x = [], leaves
+    with uncounted():
+        while x.shape[0] > 1:
+            x = x.reshape(x.shape[0] // 2, 2, 8)
+            levels.append({"hashes": x.shape[0],
+                           **timings(x, 20 if x.shape[0] < 1 << 17 else 5)})
+            if x.shape[0] <= 1 << POSEIDON_ROUTE_TIMED:  # around the crossover
+                levels[-1]["route_device_ms"] = {r: device_ms(
+                    lambda: cuda_poseidon._launch(x, p, 3, 2, 10, 10, r), 20)
+                    for r in cuda_poseidon.ROUTES}
+            x = poseidon_hash_batch(x, p)
     hashes = (1 << log_leaves) - 1
     b = bound(hashes * 3 * 32, hashes * poseidon_products(3, 10, 10, 2))
-    results.append({"what": f"Merkle root of 2^{log_leaves} leaves",
-                    "launches_per_call": log_leaves, "ms": tree_ms,
-                    "plain_ms": tree_plain_ms, "max_abs_err": err, **b})
+    entry = {"what": f"Merkle root of 2^{log_leaves} leaves",
+             "launches_per_call": log_leaves, "ms": tree_ms,
+             "plain_ms": tree_plain_ms, "max_abs_err": err, **b,
+             "levels": levels}
+    if prev:
+        with uncounted():
+            entry["paired_ms"], entry["prev_ms"] = paired(
+                lambda: root(leaves, poseidon_hash_batch),
+                lambda: root(leaves, prev["poseidon"]), 3)
+    results.append(entry)
     log(f"poseidon Merkle root of 2^{log_leaves} leaves ({log_leaves} launches): "
-        f"{tree_ms:.3f} ms (plain {tree_plain_ms:.1f} ms); == plain, and the "
-        f"2^10-leaf root == host sponge; bound {b['bound_ms']:.3f} ms")
+        f"{tree_ms:.3f} ms"
+        + (f", paired {entry['paired_ms']:.3f} against the previous design's "
+           f"{entry['prev_ms']:.3f} ms" if prev else "")
+        + f" (plain {tree_plain_ms:.1f} ms); == plain, and the 2^10-leaf root == "
+        f"host sponge; bound {b['bound_ms']:.3f} ms")
+    log("poseidon tree levels (hashes, route, event ms, device ms"
+        + (", paired ms, previous design's ms and device ms" if prev else "")
+        + "; to 2^16 hashes, device ms on the thread and the lane route): "
+        + json.dumps([[lv["hashes"], lv["route"]] + [
+            round(lv[k], 4) for k in ("ms", "device_ms", "paired_ms", "prev_ms",
+                                      "prev_device_ms") if k in lv]
+            + [round(v, 4) for v in lv.get("route_device_ms", {}).values()]
+            for lv in levels]))
     return results
 
 
@@ -1621,11 +1835,9 @@ def run_route(phases_out):
     return out
 
 
-def engine_extras(torch, method, s, P, curve, reps, prev, chunks=()):
+def engine_extras(torch, method, s, P, curve, reps, chunks=()):
     """An engine beyond its time: its per-phase times (summed over the
-    chunks), the peak scratch of one call; with `prev` (kernels 6 and 7's
-    previous design) its time in turns with that design's, whose result
-    must agree; kernel 7 also its time and peak scratch on its own route
+    chunks), the peak scratch of one call; kernel 7 also its time and peak scratch on its own route
     (kernel 1's C calls) and on kernel 4's, in turns, whose results must
     agree; and with `chunks` (kernels 4 and 5) its time and scratch at each
     chunk size."""
@@ -1639,12 +1851,6 @@ def engine_extras(torch, method, s, P, curve, reps, prev, chunks=()):
            "scratch_bytes": peak_bytes(torch, call)}
     if method != "lane":
         out["chunk"] = cuda_msm.PIPPENGER_CHUNK
-    if prev is not None and method in prev:
-        old = prev[method](s, P, curve)
-        if point_ints(decode_one(curve, old)) != point_ints(decode_one(curve, call())):
-            raise AssertionError(f"{method} n={s.shape[0]}: != the previous kernel")
-        out["paired_ms"], out["prev_ms"] = paired(
-            call, lambda: prev[method](s, P, curve), reps)
     if method == "lane":
         routes = {"bucket": lambda: run_route(cuda_msm.bucket_phases(s, P, curve)),
                   "pippenger": lambda: run_route(
@@ -1664,15 +1870,13 @@ def engine_extras(torch, method, s, P, curve, reps, prev, chunks=()):
     return out
 
 
-def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21,
-                   prev=None):
+def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21):
     """Kernels 4-7 at the mesh path's widths on BN254: at 2^17 (the
     cross-term width) held against `want17`, the bucket MSM's plain version
     on the same inputs (computed once), and each timed against its own plain
     version; at 2^21 (the SPS commit width, the key's points) against
     `host21`, the host MSM of (s21, P21), which the bucket kernel equals.
-    Each also per phase, with its peak scratch, kernels 6 and 7 with their
-    previous design (`prev`) in turns with them, kernel 7 on both routes,
+    Each also per phase, with its peak scratch, kernel 7 on both routes,
     and kernels 4 and 5 at 2^21 per chunk size (`engine_extras`).  Returns
     {method: [entry at 2^17, entry at 2^21]}."""
     from mira_tpu_torch.ops.msm import msm, plain_engine
@@ -1688,7 +1892,7 @@ def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21,
         err = max(err, max_abs_err(point_ints(decode_one(curve, plain)), want))
         if err:
             raise AssertionError(f"{method} 2^17: kernel or plain != msm_plain")
-        extra = engine_extras(torch, method, s17, P17, curve, ENGINE_REPS[method], prev)
+        extra = engine_extras(torch, method, s17, P17, curve, ENGINE_REPS[method])
         out[method].append({"n": 1 << 17, "ms": ms, "plain_ms": plain_ms,
                             "bucket_plain_ms": plain17_ms, "max_abs_err": err,
                             **msm_bucket_bound(1 << 17, curve), **extra})
@@ -1702,7 +1906,7 @@ def engine_timings(torch, ck, s17, P17, want17, plain17_ms, s21, P21, host21,
                           host)
         if err:
             raise AssertionError(f"{method} 2^21: kernel != bucket kernel == host")
-        extra = engine_extras(torch, method, s, P, curve, ENGINE_REPS[method], prev,
+        extra = engine_extras(torch, method, s, P, curve, ENGINE_REPS[method],
                               PIPPENGER_CHUNKS if method in PIPPENGER_METHODS else ())
         out[method].append({"n": n, "ms": ms, "plain_ms": None, "max_abs_err": err,
                             **msm_bucket_bound(n, curve), **extra})
@@ -1717,9 +1921,6 @@ def _engine_note(extra: dict) -> str:
             f", peak scratch {extra['scratch_bytes'] / 2**20:.1f} MiB")
     if "chunk" in extra:
         note += f" in chunks of {extra['chunk']}"
-    if "prev_ms" in extra:
-        note += (f"; paired with the previous design's {extra['paired_ms']:.3f} "
-                 f"vs {extra['prev_ms']:.3f} ms")
     if "route_ms" in extra:
         mib = {k: round(v / 2**20, 1) for k, v in extra["route_scratch_bytes"].items()}
         note += (f"; by route, paired (ms) "
@@ -1917,7 +2118,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     prev = prev_build.result()
-    log(f"previous kernels 6 and 7 (commit {PREV_COMMIT}) for the paired timing: "
+    log(f"previous kernels 8 and 10 (commit {PREV_COMMIT}) for the paired timing: "
         f"{'built from ' + PREV_CSRC if prev else 'no copy at ' + PREV_CSRC + ', not timed'}")
     phase("build", t0)
     # the keys after the build, whose nvcc processes want every core: the
@@ -1942,6 +2143,7 @@ def main() -> int:
                 torch, dev, jobs if check is check_msm_layout_cases else rng)
             log(f"  {check.__name__}: {time.perf_counter() - t1:.1f} s")
         layout_err = small["check_msm_layout_cases"]
+        poseidon_cross = small["check_poseidon_small"]
         table_err = small["check_table_edges"]
         phase("kernel_checks_small", t0)
 
@@ -1949,7 +2151,11 @@ def main() -> int:
         # are made
         t0 = time.perf_counter()
         reset_launch_counts()
-        ntt_four, ntt_stage = run_ntt_path(torch, dev, rng)
+        log("the NTT and Poseidon paths run while the keys are made on a "
+            "background thread (native keygen) and the edge cases' plain "
+            f"versions in {LAYOUT_WORKERS} CPU worker processes: their event "
+            "times include that host's load, their device times do not")
+        ntt_four, ntt_stage = run_ntt_path(torch, dev, rng, prev)
         ntt_counts = launch_counts()
         log(f"launches over the NTT path: {ntt_counts}")
         require_launched(ntt_counts, ("ntt_fourstep", "ntt_stage"), "the NTT path")
@@ -1957,7 +2163,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         reset_launch_counts()
-        poseidon_at = run_poseidon_path(torch, dev, rng)
+        poseidon_at = run_poseidon_path(torch, dev, rng, prev)
         poseidon_counts = launch_counts()
         log(f"launches over the Poseidon path: {poseidon_counts}")
         require_launched(poseidon_counts, ("poseidon",), "the Poseidon path")
@@ -2149,7 +2355,7 @@ def main() -> int:
     # -- kernels 4-7: timings at the mesh path's widths, their paths ----------
     t0 = time.perf_counter()
     engine_at = engine_timings(torch, ck1, s, P, bucket_plain17,
-                               bucket_plain17_ms, s21, P21, host21, prev)
+                               bucket_plain17_ms, s21, P21, host21)
     pippenger_err = max(pippenger_err, check_pippenger_chunks(
         torch, dev, rng, ck1, cuda_msm.PIPPENGER_CHUNK))
     phase("msm_engine_timing", t0)
@@ -2174,8 +2380,7 @@ def main() -> int:
                         "path": f"{MESH_STEPS} k={K} fold_step(mesh=) on a mesh of 1",
                         "launches_dryrun": dry_counts[name]}
         extra = {"sources": ENGINE_SOURCES[method], "phases_ms": at[0]["phases_ms"],
-                 "scratch_bytes": at[0]["scratch_bytes"],
-                 **{k: at[0][k] for k in ("paired_ms", "prev_ms") if k in at[0]}}
+                 "scratch_bytes": at[0]["scratch_bytes"]}
         kernels.append({
             "name": name, "route": "cuda", "source": f"mira_tpu_torch/csrc/{src}",
             "replaces": replaces, **launches,
@@ -2212,7 +2417,12 @@ def main() -> int:
         + json.dumps({k: [c, round(t, 3)] for k, (c, t) in tracing.totals().items()}))
     log(f"protogalaxy prove (s): {pg_secs}; launches over the path: {pg_counts}; "
         f"peak device memory {pg_peak / 2**30:.3f} GiB")
-    require_launched(pg_counts, ("msm_bucket", "ntt_stage", "fold_eval"),
+    # compute_K's size-16 coset transforms take the engine ops/ntt.py's
+    # FOURSTEP_MIN gives that size
+    from mira_tpu_torch.ops.ntt import FOURSTEP_MIN
+
+    pg_ntt = "ntt_fourstep" if PG_NTT_SIZE >= FOURSTEP_MIN else "ntt_stage"
+    require_launched(pg_counts, ("msm_bucket", pg_ntt, "fold_eval"),
                      "the ProtoGalaxy path")
     phase("protogalaxy_path", t0)
 
@@ -2228,6 +2438,11 @@ def main() -> int:
         "ms": head4["ms"], "plain_ms": head4["plain_ms"],
         "bound_ms": head4["bound_ms"], "bound_by": head4["bound_by"],
         "library_ms": None, "shape": f"n=2^{NTT_PLAIN_MAX} over BN254 Fr, forward",
+        "device_ms": head4["device_ms"], "split": head4["split"],
+        **{k: head4[k] for k in ("paired_ms", "prev_ms", "prev_device_ms")
+           if k in head4},
+        "launches_protogalaxy": pg_counts["ntt_fourstep"],
+        "launches_dryrun": dry_counts["ntt_fourstep"],
         "at": ntt_four,
     })
     head9 = next(e for e in ntt_stage if e["launches_per_call"] == 1)
@@ -2238,6 +2453,7 @@ def main() -> int:
         "launches": ntt_counts["ntt_stage"],
         "launches_protogalaxy": pg_counts["ntt_stage"],
         "launches_per_prove": [c["ntt_stage"] for c in pg_prove_counts],
+        "launches_dryrun": dry_counts["ntt_stage"],
         "max_abs_err": max(e["max_abs_err"] for e in ntt_stage),
         "ms": head9["ms"], "plain_ms": head9["plain_ms"],
         "bound_ms": head9["bound_ms"], "bound_by": head9["bound_by"],
@@ -2257,6 +2473,10 @@ def main() -> int:
         "library_ms": None,
         "shape": f"N=2^{POSEIDON_SIZES[-1]} 2-to-1 hashes, t=3 rate=2 r_f=r_p=10, "
                  "BN254 Fr",
+        "device_ms": head10["device_ms"], "route_taken": head10["route"],
+        "crossover": poseidon_cross,
+        **{k: head10[k] for k in ("paired_ms", "prev_ms", "prev_device_ms")
+           if k in head10},
         "at": poseidon_at,
     })
     kernels[0]["launches_protogalaxy"] = pg_counts["msm_bucket"]

@@ -50,8 +50,8 @@ _SIGNATURES = {
     "mira_msm_fixed_finish": [_I, _I, _P, _I, _I, _P, _P, _P, _P],
     "mira_fixed_table": [_I, _P, _P, _P, _I, _I, _P, _P, _P],
     "mira_ntt_stage": [_I, _P, _P, _P, _I, _I, _I, _P, _I, _P],
-    "mira_ntt_fourstep": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
-    "mira_poseidon": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "mira_ntt_pass": [_I, _P, _P, _P, _P, _P, _P, _I, _P],
+    "mira_poseidon": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P],
     "mira_msm_pippenger_recode": [_P, _I, _I, _I, _P, _P],
     "mira_msm_pippenger_finish": [_I, _I, _P, _I, _I, _P, _P, _P, _P],
 }

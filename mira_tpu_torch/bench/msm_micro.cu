@@ -5,10 +5,14 @@
 // XYZZ doubling, a Jacobian doubling and a full XYZZ addition (the chains of
 // Horner's rule); the mixed-addition rate of a register-resident madd loop
 // at four block shapes.  The PTX product lives here only, as the measured
-// alternative: the library keeps one product.
+// alternative: the library keeps one product.  And the Poseidon sponge's
+// thread route (csrc/poseidon.cuh) with its product inlined, for t = 3 over
+// BN254 Fr only, to time against the library's out-of-line product.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include "../csrc/field.cuh"
+#define POSEIDON_MUL_ATTR __forceinline__
+#include "../csrc/poseidon.cuh"
 using namespace mira;
 
 #define CHAIN_LO(T, A, B)                                                     \
@@ -158,4 +162,13 @@ extern "C" int occupancy(int cfg) {
     case 3: cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, madd_tput<128, 5>, 128, 0); break;
   }
   return nb;
+}
+extern "C" int run_poseidon_inline(const void* in, void* out, int n, int len,
+                                   int r_f, int r_p, const void* consts,
+                                   int n_consts) {
+  const uint32_t* c = (const uint32_t*)consts;
+  poseidon::thread_kernel<Fr, 3><<<(n + 127) / 128, 128>>>(
+      (const uint32_t*)in, (uint32_t*)out, n, len, r_f, r_p, c,
+      c + (size_t)(n_consts - 1) * 8);
+  return (int)cudaGetLastError();
 }

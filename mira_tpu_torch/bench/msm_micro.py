@@ -1,17 +1,19 @@
 """Microbenchmarks behind the MSM kernels' design, on one NVIDIA GPU:
 
-    python3 -m mira_tpu_torch.bench.msm_micro [--prev]
+    python3 -m mira_tpu_torch.bench.msm_micro
 
 Builds bench/msm_micro.cu with nvcc (sm_90a) and prints: the SASS
 instruction mix of one Montgomery product (field.cuh's, and a carry-chain
 PTX version), both products' throughput over 270k threads, the one-thread
 latency of an XYZZ doubling, a Jacobian doubling and a full XYZZ addition,
-and the mixed-addition rate of a madd loop at four block shapes.  Then it
-times the MSM kernels of the port at their head shapes per launch with
-torch.profiler (kernels 1 and 4 at 2^17, kernels 3 and 3b at 248,533
-points w=5 and 2^17 w=6, over points of a 2^18 key); with --prev also the
-previous design of kernel 4 (commit 9e88700), built from the copy that
-chip_smoke.py's PREV_CSRC names.
+and the mixed-addition rate of a madd loop at four block shapes.  Then the
+Poseidon sponge's building blocks (kernel 10, t = 3 over BN254 Fr): the
+latency of one permutation of one hash on each route (a thread; the lanes
+of a warp), and the thread route at 2^20 hashes with the library's
+out-of-line product against the same code with the product inlined, in
+turns.  Then it times the MSM kernels of the port at their head shapes per
+launch with torch.profiler (kernels 1 and 4 at 2^17, kernels 3 and 3b at
+248,533 points w=5 and 2^17 w=6, over points of a 2^18 key).
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ def _build_micro() -> ctypes.CDLL:
     lib.run_dbl.argtypes = [I, P, P, I]
     lib.run_madd.argtypes = [I, P, P, I, I]
     lib.occupancy.argtypes = [I]
+    lib.run_poseidon_inline.argtypes = [P, P, I, I, I, I, P, I]
     return lib
 
 
@@ -86,8 +89,7 @@ def _events(fn) -> float:
     return start.elapsed_time(end)
 
 
-def micro(dev, rng):
-    lib = _build_micro()
+def micro(lib, dev, rng):
 
     def rand_fe(n):
         vals = [int.from_bytes(rng.bytes(32), "little") % BN254_FQ for _ in range(n)]
@@ -126,7 +128,55 @@ def micro(dev, rng):
               "G madd/s")
 
 
-def profile_msms(dev, rng, prev: bool):
+def poseidon_micro(lib, dev, rng):
+    """Kernel 10's latency per permutation on each route, one 2-to-1-width
+    hash (t = 3) of 400 inputs (201 permutations), and the thread route at
+    2^20 hashes with the product out of line (the library) and inlined."""
+    from ..fields.limbs import limb_field
+    from ..fields.params import BN254_FR
+    from ..ops import cuda_poseidon
+
+    p = BN254_FR
+    lf = limb_field(p)
+
+    def rand(n):
+        vals = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+        return lf.encode(vals, dev)
+
+    one = rand(400).reshape(1, 400, 8)
+    for route in cuda_poseidon.ROUTES:
+        fn = lambda: cuda_poseidon._launch(one, p, 3, 2, 10, 10, route)
+        fn()
+        ms = _events(lambda: [fn() for _ in range(5)]) / 5
+        print(f"poseidon permutation, one hash on the {route} route: "
+              f"{ms / 201 * 1e3:.2f} us")
+    consts = cuda_poseidon._constants(p, 3, 2, 10, 10, str(dev))
+
+    def inline(values):
+        out = torch.empty(values.shape[0], 8, dtype=torch.int32, device=dev)
+        _build.check(lib.run_poseidon_inline(
+            values.data_ptr(), out.data_ptr(), values.shape[0], values.shape[1],
+            10, 10, consts.data_ptr(), consts.shape[0]), "run_poseidon_inline")
+        return out
+
+    inline(one)
+    ms = _events(lambda: [inline(one) for _ in range(5)]) / 5
+    print(f"poseidon permutation, one hash on the thread route, product "
+          f"inlined: {ms / 201 * 1e3:.2f} us")
+    pairs = torch.cat([rand(1 << 12)] * (1 << 9)).reshape(1 << 20, 2, 8)
+    call = lambda: cuda_poseidon._launch(pairs, p, 3, 2, 10, 10, "thread")
+    if not torch.equal(call(), inline(pairs)):
+        raise AssertionError("poseidon: the inlined product's hashes differ")
+    times = {"call": [], "inline": []}
+    for name in ("call", "inline", "inline", "call"):
+        fn = call if name == "call" else lambda: inline(pairs)
+        fn()
+        times[name].append(_events(lambda: [fn() for _ in range(5)]) / 5)
+    print("poseidon 2^20 hashes, thread route, in turns (ms): "
+          + ", ".join(f"{k} {v}" for k, v in times.items()))
+
+
+def profile_msms(dev, rng):
     from torch.profiler import ProfilerActivity, profile
 
     from ..curves.host import BN254_G1
@@ -134,11 +184,6 @@ def profile_msms(dev, rng, prev: bool):
     from ..ops.commitment import CommitmentKey
 
     ck = CommitmentKey.load_or_setup_cache(BN254_G1, 18, "bn256", device=dev)
-    root = os.path.dirname(os.path.dirname(HERE))
-    sys.path.insert(0, root)
-    import chip_smoke
-
-    old = chip_smoke.prev_kernels(root) if prev else None
 
     def scalars(n):
         w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
@@ -147,43 +192,33 @@ def profile_msms(dev, rng, prev: bool):
 
     cases = []
     P17, s17 = ck._enc_slice(1 << 17), scalars(1 << 17)
-    cases.append(("msm_bucket 2^17", lambda: cuda_msm.msm_cuda(s17, P17, BN254_G1),
-                  None))
+    cases.append(("msm_bucket 2^17", lambda: cuda_msm.msm_cuda(s17, P17, BN254_G1)))
     cases.append(("msm_pippenger 2^17",
-                  lambda: cuda_msm.msm_pippenger_cuda(s17, P17, BN254_G1),
-                  old and (lambda: old["msm_pippenger"](s17, P17, BN254_G1, True))))
+                  lambda: cuda_msm.msm_pippenger_cuda(s17, P17, BN254_G1)))
     for n, w in ((248533, 5), (1 << 17, 6)):
         Pn, sn = ck._enc_slice(n), scalars(n)
         tab = cuda_msm.fixed_table_cuda(Pn, BN254_G1, w)
         cases.append((f"fixed_table {n} w={w}",
-                      lambda P=Pn, w=w: cuda_msm.fixed_table_cuda(P, BN254_G1, w),
-                      None))
+                      lambda P=Pn, w=w: cuda_msm.fixed_table_cuda(P, BN254_G1, w)))
         cases.append((f"msm_fixed {n} w={w}",
-                      lambda s=sn, t=tab, w=w: cuda_msm.msm_fixed_cuda(s, t, BN254_G1, w),
-                      None))
-    for name, new, before in cases:
-        for label, fn in (("this tree", new), (f"commit {chip_smoke.PREV_COMMIT}",
-                                               before)):
-            if fn is None:
-                continue
-            fn()
-            ms = _events(lambda: [fn() for _ in range(5)]) / 5
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
-                for _ in range(3):
-                    fn()
-                torch.cuda.synchronize()
-            print(f"{name} ({label}): {ms:.3f} ms a call (CUDA events); per launch:")
-            for ev in pr.key_averages():
-                dt = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
-                if dt and ev.count and ev.key.startswith("void"):
-                    print(f"    {ev.key[:72]:72s} x{ev.count // 3} {dt / ev.count / 1e3:.3f} ms")
+                      lambda s=sn, t=tab, w=w: cuda_msm.msm_fixed_cuda(s, t, BN254_G1, w)))
+    for name, fn in cases:
+        fn()
+        ms = _events(lambda: [fn() for _ in range(5)]) / 5
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        print(f"{name}: {ms:.3f} ms a call (CUDA events); per launch:")
+        for ev in pr.key_averages():
+            dt = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+            if dt and ev.count and ev.key.startswith("void"):
+                print(f"    {ev.key[:72]:72s} x{ev.count // 3} {dt / ev.count / 1e3:.3f} ms")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--prev", action="store_true",
-                    help="also profile the previous design of kernel 4")
-    args = ap.parse_args()
+    ap.parse_args()
     if not torch.cuda.is_available():
         print("msm_micro: no CUDA device visible", file=sys.stderr)
         return 2
@@ -193,8 +228,10 @@ def main() -> int:
                          text=True).stdout.strip())
     rng = np.random.default_rng(1)
     t0 = time.perf_counter()
-    micro(dev, rng)
-    profile_msms(dev, rng, args.prev)
+    lib = _build_micro()
+    micro(lib, dev, rng)
+    poseidon_micro(lib, dev, rng)
+    profile_msms(dev, rng)
     print(f"msm_micro: {time.perf_counter() - t0:.1f} s")
     return 0
 

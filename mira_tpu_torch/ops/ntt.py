@@ -14,7 +14,7 @@ one launch of each kernel.
 Dispatch of `ntt`: a CPU tensor takes the plain stage-by-stage version
 (`ntt_plain`); a CUDA tensor takes a kernel of ops/cuda_ntt.py, chosen by
 `engine`: "auto" is the four-step kernel (csrc/ntt_fourstep.cu) for
-n >= 4096 and the per-stage kernel (csrc/ntt_stage.cu) below that,
+n >= FOURSTEP_MIN and the per-stage kernel (csrc/ntt_stage.cu) below that,
 "fourstep" and "stage" force one.  Nothing falls from one engine to another:
 a size an engine cannot hold raises ValueError.
 """
@@ -29,10 +29,11 @@ from ..fields.limbs import NUM_WORDS, limb_field
 from ..fields.params import field_params
 
 ENGINES = ("auto", "fourstep", "stage")
-# "auto" takes the four-step kernel from this size on.  It is the reference's
-# threshold, not one tuned on the card: chip_smoke.py times both engines around
-# it, and PERF.md has what an H100 showed.
-FOURSTEP_MIN = 4096
+# "auto" takes the four-step kernel from this size on: the size from which
+# its device time (two launches) is below the stage kernel's (log n
+# launches) on an H100 (chip_smoke.py times both engines around it, by
+# events and by device time; PERF.md has the numbers).
+FOURSTEP_MIN = 16
 _HOST_TABLE = 4096  # twiddle tables up to this length are made on the host
 
 
@@ -42,6 +43,7 @@ def _bitrev_perm(log_n: int) -> list:
             for i in range(n)]
 
 
+@lru_cache(maxsize=None)
 def get_omega(modulus: int, log_n: int, inverse: bool = False) -> int:
     """omega for domain size 2^log_n (reference fft.rs:12-23: square
     ROOT_OF_UNITY down from 2-adicity S)."""

@@ -328,6 +328,26 @@ def test_coset_round_trip_and_engine_limits(cuda_device):  # noqa: F811
         cuda_ntt.ntt_fourstep_cuda(a[:2], p)
 
 
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("passes", [2, 3])
+@pytest.mark.parametrize("log_n", [3, 4, 7, 8, 12, 13, 16])
+def test_ntt_fourstep_every_split(log_n, passes, inverse, cuda_device):  # noqa: F811
+    """Kernel 8 on both of its cuts (two and three column passes), odd and
+    even log n, one array and a batch of three, against the plain version."""
+    from mira_tpu_torch.ops import cuda_ntt, ntt
+
+    p = BN254_FR
+    split = cuda_ntt.fourstep_split(log_n, passes)
+    _, a = _ntt_inputs(1 << log_n, 60 + log_n, cuda_device)
+    got = cuda_ntt._fourstep(a, p, inverse, split)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ntt.ntt_plain(a, p, inverse))
+    rows = torch.stack([_ntt_inputs(1 << log_n, 70 + b, cuda_device)[1]
+                        for b in range(3)])
+    assert torch.equal(cuda_ntt._fourstep(rows, p, inverse, split),
+                       ntt.ntt_plain(rows, p, inverse))
+
+
 # -- the Poseidon kernel ------------------------------------------------------
 @pytest.mark.parametrize("t,rate,length", [(3, 2, 2), (3, 2, 3), (5, 4, 4),
                                            (5, 4, 6), (2, 1, 1), (3, 2, 0),
@@ -364,6 +384,53 @@ def test_poseidon_kernel_matches_plain_and_host(t, rate, length, cuda_device):  
         if len(buf) % rate == 0:
             h.permutation([])
         assert lf.decode(got[i : i + 1]) == [h.state[1].v]
+
+
+@pytest.mark.parametrize("route", ["thread", "lanes"])
+@pytest.mark.parametrize("t", [2, 3, 4, 5])
+def test_poseidon_routes_match_plain(t, route, cuda_device):  # noqa: F811
+    """Each route of kernel 10 forced, at every width, on empty, short, one
+    chunk and several chunks of input, on 1, 33 and 131 hashes (the lane
+    route's last warp partly past the batch)."""
+    from mira_tpu_torch.ops import cuda_poseidon
+    from mira_tpu_torch.ops.poseidon_device import poseidon_hash_batch_plain
+
+    p = BN254_FR
+    lf = limb_field(p)
+    rng = np.random.default_rng(100 + t)
+    for length in (0, 1, t - 1, 2 * t + 1):
+        for n in (1, 33, 131):
+            vals = [int.from_bytes(rng.bytes(32), "little") % p
+                    for _ in range(n * length)]
+            flat = lf.encode(vals, cuda_device).reshape(n, length, 8)
+            got = cuda_poseidon._launch(flat, p, t, t - 1, 10, 10, route)
+            torch.cuda.synchronize()
+            want = poseidon_hash_batch_plain(flat, p, t=t, rate=t - 1)
+            assert torch.equal(got, want), (length, n)
+
+
+def test_poseidon_route_follows_the_rule(cuda_device):  # noqa: F811
+    """`poseidon_hash_batch` takes the route the rule names for this card on
+    either side of the crossover, and both routes agree there."""
+    from mira_tpu_torch.ops import cuda_poseidon
+    from mira_tpu_torch.ops.poseidon_device import poseidon_hash_batch
+
+    sms = cuda_poseidon.card_sms(str(cuda_device))
+    cross = cuda_poseidon.LANE_THREADS_PER_SM * sms // cuda_poseidon.lanes_per_hash(3)
+    assert cuda_poseidon.poseidon_route(cross, 3, sms) == "lanes"
+    assert cuda_poseidon.poseidon_route(cross + 1, 3, sms) == "thread"
+    p = BN254_FR
+    lf = limb_field(p)
+    rng = np.random.default_rng(5)
+    for n in (cross, cross + 1):
+        vals = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(2 * n)]
+        flat = lf.encode(vals, cuda_device).reshape(n, 2, 8)
+        before = cuda_poseidon.launches
+        got = poseidon_hash_batch(flat, p)
+        assert cuda_poseidon.launches == before + 1
+        for route in cuda_poseidon.ROUTES:
+            assert torch.equal(got, cuda_poseidon._launch(flat, p, 3, 2, 10, 10,
+                                                          route))
 
 
 def test_poseidon_kernel_rejects_wide_states(cuda_device):  # noqa: F811

@@ -116,3 +116,32 @@ def test_arguments_are_checked():
         poseidon_hash_batch(flat[0], BN254_FR)
     with pytest.raises(ValueError):  # the kernel's wrapper takes CUDA tensors
         cuda_poseidon.poseidon_hash_batch_cuda(flat, BN254_FR)
+
+
+@pytest.mark.parametrize("t, lanes", [(2, 2), (3, 4), (4, 4), (5, 8)])
+def test_lane_route_widths(t, lanes):
+    assert cuda_poseidon.lanes_per_hash(t) == lanes
+
+
+# (hashes, width, SMs): an H100's 132 SMs, and a card of one
+RULE_CASES = [(1, 3, 132), (1 << 13, 3, 132), (8448, 3, 132), (8449, 3, 132),
+              (1 << 14, 3, 132), (1 << 20, 3, 132), (4224, 5, 132),
+              (4225, 5, 132), (16896, 2, 132), (16897, 2, 132), (64, 4, 1),
+              (65, 4, 1), (0, 3, 132)]
+
+
+@pytest.mark.parametrize("n, t, sms", RULE_CASES)
+def test_route_rule(n, t, sms):
+    """The lane route exactly while the batch's lanes fill at most two warps
+    on each of the card's SM sub-partitions; the rule reads nothing else."""
+    lanes = cuda_poseidon.lanes_per_hash(t)
+    want = "lanes" if n * lanes <= 4 * 2 * 32 * sms else "thread"
+    assert cuda_poseidon.poseidon_route(n, t, sms) == want
+
+
+def test_route_rule_on_a_merkle_tree():
+    """A 2^20-leaf tree (t = 3) on 132 SMs: its levels of 2^14 hashes and
+    more on the thread route, the 14 levels of 2^13 hashes and fewer on the
+    lane route."""
+    routes = [cuda_poseidon.poseidon_route(1 << k, 3, 132) for k in range(20)]
+    assert routes == ["lanes"] * 14 + ["thread"] * 6
