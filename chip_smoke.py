@@ -14,12 +14,37 @@ every table shape each path builds, and the fold evaluator at each path's
 row count:
 
 - the bench's main path: real commitment keys of 2^21 points per curve,
-  public parameters of the k=17 Poseidon/trivial two-curve IVC, the zero
-  step, three fold steps and IVC.verify(strict=True);
+  public parameters of the k=17 Poseidon/trivial two-curve IVC (each side's
+  step-folding circuit synthesized once, in capture mode), the zero step
+  (a replay of those tapes), three fold steps and IVC.verify(strict=True);
 - SnarkStar batch 1 (workloads/snarkstar.run): k=19, real keys of 2^23
   (BN254) and 2^24 (Grumpkin) points, real Groth16 proofs of a
   1000-constraint circuit folded with real pairing Gt cross terms, two fold
-  steps and verify(strict=True), which includes the real-pairing Gt decider.
+  steps and verify(strict=True), which includes the real-pairing Gt decider;
+- SnarkStar batch 2: k=20, real keys of 2^24 points on both curves (batch
+  1's 2^23 BN254 key is the first rows of the 2^24 one), two real proofs a
+  batch, one fold step and verify(strict=True), its tables and fixed-base
+  MSMs held to their plain versions at its shapes and the fold evaluator on
+  row ranges of its 2^20 rows;
+- TensorStar (workloads/tensorstar.run): k=22, the zkml shape on the
+  secondary side (23 G1, 2 G2, Gt degree 3, 12 Gt cross terms), mock keys
+  of 2^26 points as the reference's default, one fold step and
+  verify(strict=True), then the fold evaluator held to its plain version on
+  row ranges of both step-folding circuits' 2^22 rows (the last rows among
+  them).  It runs in a worker process from the start (its host work, a
+  k=22 step-folding circuit synthesized in Python, runs beside the build
+  and the small checks; its lines start with "[tensorstar] "), and the main
+  process waits for it before it times any kernel; SnarkStar batch 2 runs
+  in that process once its keys are made and the main process's kernel
+  timings are done (its lines start with "[snarkstar b2] "), and the kernel
+  times at both SnarkStar batches' shapes are taken at the end, each
+  process's while the other waits, so that no kernel time is taken while
+  the other process uses the card;
+- the IVC checkpoint: the k=17 IVC saved before its last fold step,
+  IVC.resume from the file into a new IVC that folds that step to the
+  uninterrupted IVC's accumulators and passes verify(strict=True);
+- the Merkle CLI (workloads/merkle.run): k=17, mock keys, one fold step,
+  verify(strict=True).
 
 Then three paths of the polynomial and hashing side, each at full size:
 
@@ -87,11 +112,12 @@ either side of the rule's crossover.  Where a copy of the previous sources
 and 10 is built beside this tree's and timed in turns with it at every
 shape of the NTT and Poseidon paths, each level of the tree included.
 
-Kernel launches are counted over each path.  The keys of both paths come
-from one background thread started right after the build (the native
-keygen releases the GIL): the k=17 path's 2^21 keys while the small checks
-and the NTT and Poseidon paths run, then SnarkStar's, which grow from them
-by their new rows alone, while the k=17 path runs.
+Kernel launches are counted over each path, in the process that runs it.
+The keys of the IVC paths come from one background thread started before
+the build (the native keygen releases the GIL): the k=17 path's 2^21 keys
+while the build, the small checks and the NTT and Poseidon paths run, then
+SnarkStar's 2^24 keys, which grow from them by their new rows alone, while
+the k=17 path runs.
 With --profile DIR it runs one more k=17 fold step and one more mesh fold
 step under torch.profiler and prints the device's busy share of each step
 and its ops by device time and by host time.
@@ -110,6 +136,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -173,11 +200,119 @@ MADD_PRODUCTS = 10  # field products of one mixed XYZZ addition (xyzz_madd)
 ADD_PRODUCTS = 14  # of one full XYZZ addition (xyzz_add)
 JAC_ADD_PRODUCTS = 16  # of one Jacobian addition (jac_add)
 SNARK_STEPS = 2  # the reference's slow test runs 2, its bench 4
+SNARK_B2_STEPS = 1  # SnarkStar batch 2's fold steps
 SNARK_CONSTRAINTS = 1000
+TS_STEPS = 1  # TensorStar's fold steps (repeat_count)
+TS_MATRIX_DIM = 32  # the zkml ladder's smallest matrix: k = 22
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+class _Prefixed:
+    """A text stream that starts every line written to `stream` with
+    `prefix` (the TensorStar process's lines among the main process's)."""
+
+    def __init__(self, stream, prefix: str):
+        self.stream, self.prefix, self.at_start = stream, prefix, True
+
+    def write(self, text: str) -> int:
+        for piece in text.splitlines(keepends=True):
+            if self.at_start:
+                self.stream.write(self.prefix)
+            self.stream.write(piece)
+            self.at_start = piece.endswith("\n")
+        return len(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+_B2 = {}  # the worker's SnarkStar batch 2 kernel times, left for a later job
+
+
+def _worker_init(built):
+    """The worker process's set-up: its first kernel call waits until the
+    main process has built the kernel library (`built` set), then loads the
+    same file, so that TensorStar's host work runs beside the build."""
+    from mira_tpu_torch import _build
+
+    build = _build.lib
+
+    def lib_after_build():
+        built.wait()
+        return build()
+
+    _build.lib = lib_after_build
+
+
+def snarkstar_b2_worker(seed: int, seen) -> dict:
+    """SnarkStar batch 2 (`run_snarkstar`) in the worker process, once its
+    keys are made: then its tables and fixed-base MSMs held to their plain
+    versions at each (lanes, window) it built that is not in `seen` (shapes
+    the main process checked before), and the fold evaluator on row ranges
+    of its 2^20 rows.  The kernel times at those shapes are left to
+    `snarkstar_b2_times`, which the main process asks for once the card is
+    its alone.  Its lines start with "[snarkstar b2] ".  Returns its launch
+    counts, phase seconds and the fold evaluator's check entries."""
+    import numpy as np
+    import torch
+
+    sys.stdout = _Prefixed(sys.__stdout__, "[snarkstar b2] ")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed)
+    counts, report = run_snarkstar(torch, dev, 2, SNARK_B2_STEPS)
+    t0 = time.perf_counter()
+    pp = report.pop("ivc").pp
+    msm_at, tab_at, fe_at, pending = [], [], [], []
+    for side in (pp.primary, pp.secondary):
+        name = side.ck.curve.name
+        shapes = [sh for sh in report["tables"][name] if (name, *sh) not in seen]
+        m, t = fixed_checks(torch, dev, rng, side.ck, shapes, "snarkstar_b2",
+                            defer=pending)
+        msm_at += m
+        tab_at += t
+        nrow = 1 << side.S.k
+        check_fold_eval(torch, dev, rng, side.S, ranges=[
+            (nrow // 8 + 3, nrow // 2 + 1), (nrow - nrow // 5 - 1, nrow)])
+        fe_at.append({"path": "snarkstar_b2", "curve": name, "nrow": nrow,
+                      "rows": "ranges", "max_abs_err": 0})
+    _B2.update(msm_fixed=msm_at, fixed_table=tab_at, pending=pending)
+    phase("snarkstar_b2_kernel_checks", t0)
+    return {"counts": counts, "secs": report, "fold_eval": fe_at}
+
+
+def snarkstar_b2_times() -> dict:
+    """The kernel times that `snarkstar_b2_worker` left, taken while the
+    main process waits; returns its msm_fixed and fixed_table entries."""
+    t0 = time.perf_counter()
+    for times in _B2.pop("pending"):
+        times()
+    phase("snarkstar_b2_kernel_times", t0)
+    return {"msm_fixed": _B2.pop("msm_fixed"), "fixed_table": _B2.pop("fixed_table")}
+
+
+def tensorstar_worker(seed: int) -> dict:
+    """The TensorStar path (`run_tensorstar`) in the worker process, from
+    the start of the script: its host work (a k=22 step-folding circuit
+    synthesized in Python, its tape prepared and replayed) runs beside the
+    main process's build and small checks, which time no kernel, and the
+    main process waits for its result before its first timing.  Its lines
+    start with "[tensorstar] ".  Returns its launch counts, phase seconds
+    and the process's peak resident host memory."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    sys.stdout = _Prefixed(sys.__stdout__, "[tensorstar] ")
+    counts, secs = run_tensorstar(torch, torch.device("cuda", 0),
+                                  np.random.default_rng(seed))
+    secs["host_peak_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    log(f"tensorstar process peak resident host memory: "
+        f"{secs['host_peak_bytes'] / 2**30:.3f} GiB")
+    return {"counts": counts, "secs": secs}
 
 
 def phase(name: str, t0: float):
@@ -1038,16 +1173,19 @@ def reset_launch_counts():
     cuda_poseidon.launches = 0
 
 
-def fixed_checks(torch, dev, rng, ck, shapes, path):
+def fixed_checks(torch, dev, rng, ck, shapes, path, defer=None):
     """`fixed_timings` at every (lanes, window) in `shapes`, the tables
     that `ck` built on `path`, over its first key points; returns the two
-    lists of results (msm_fixed, fixed_table)."""
+    lists of results (msm_fixed, fixed_table).  With `defer`, a list, the
+    kernel times are appended to it as calls that fill them in later."""
     msms, tables = [], []
     for n, window in shapes:
         m, t = fixed_timings(torch, dev, rng, ck.curve,
-                             ck._encode_rows(ck._limbs[:n]), window)
-        msms.append({"path": path, "curve": ck.curve.name, **m})
-        tables.append({"path": path, "curve": ck.curve.name, **t})
+                             ck._encode_rows(ck._limbs[:n]), window, defer=defer)
+        m.update(path=path, curve=ck.curve.name)
+        t.update(path=path, curve=ck.curve.name)
+        msms.append(m)
+        tables.append(t)
     return msms, tables
 
 
@@ -1061,15 +1199,16 @@ def paired(fn_new, fn_old, reps):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
-def fixed_timings(torch, dev, rng, curve, points, window, reps=5):
+def fixed_timings(torch, dev, rng, curve, points, window, reps=5, defer=None):
     """Kernel and plain times of the table build and of the fixed-base MSM
     over `points` at `window`, random canonical scalars, and the MSM's
-    per-phase times; both kernels must equal their plain versions."""
+    per-phase times; both kernels must equal their plain versions.  With
+    `defer`, a list, the kernel times are not taken here: a call that takes
+    them into the returned entries is appended to it."""
     from mira_tpu_torch.ops import cuda_msm
     from mira_tpu_torch.ops.msm import msm_fixed_plain, precompute_fixed_table_plain
 
     n = points[0].shape[0]
-    tab_ms = timed_cuda(lambda: cuda_msm.fixed_table_cuda(points, curve, window), reps)
     plain_tab, tab_plain_ms = timed_once(
         lambda: precompute_fixed_table_plain(points, curve, window))
     tab = cuda_msm.fixed_table_cuda(points, curve, window)
@@ -1079,56 +1218,171 @@ def fixed_timings(torch, dev, rng, curve, points, window, reps=5):
         raise AssertionError(f"fixed_table n={n} w={window}: kernel != plain")
     del plain_tab
     s = _random_plain(rng, n, dev)
-    ms = timed_cuda(lambda: cuda_msm.msm_fixed_cuda(s, tab, curve, window), reps)
-    phases = timed_phases(torch, cuda_msm.fixed_phases(s, tab, curve, window)[0], reps)
     want, plain_ms = timed_once(lambda: msm_fixed_plain(s, tab, curve, window))
     got = point_ints(decode_one(curve, cuda_msm.msm_fixed_cuda(s, tab, curve, window)))
     err = max_abs_err(got, point_ints(decode_one(curve, want)))
     if err:
         raise AssertionError(f"msm_fixed n={n} w={window}: kernel != plain")
-    routes = {k: round(v["bound_ms"], 3)
-              for k, v in fixed_table_route_bounds(n, window, curve).items()}
-    log(f"n={n} w={window} {curve.name}: fixed_table {tab_ms:.3f} ms (plain "
-        f"{tab_plain_ms:.3f} ms; bound by route {json.dumps(routes)} ms), "
-        f"msm_fixed {ms:.3f} ms (plain {plain_ms:.3f} ms; phases "
-        f"{json.dumps({k: round(v, 3) for k, v in phases.items()})}; a generic-base "
-        f"MSM's bound {msm_bucket_bound(n, curve)['bound_ms']:.3f} ms)")
-    return ({"n": n, "window": window, "ms": ms, "plain_ms": plain_ms,
-             "phases_ms": phases,
-             "max_abs_err": err, **msm_fixed_bound(n, window, curve)},
-            {"n": n, "window": window, "ms": tab_ms, "plain_ms": tab_plain_ms,
-             "max_abs_err": tab_err, **fixed_table_bound(n, window, curve)})
+    del tab, want
+    m = {"n": n, "window": window, "plain_ms": plain_ms, "max_abs_err": err,
+         **msm_fixed_bound(n, window, curve)}
+    t = {"n": n, "window": window, "plain_ms": tab_plain_ms, "max_abs_err": tab_err,
+         **fixed_table_bound(n, window, curve)}
+
+    def times():
+        t["ms"] = timed_cuda(lambda: cuda_msm.fixed_table_cuda(points, curve, window),
+                             reps)
+        tab = cuda_msm.fixed_table_cuda(points, curve, window)
+        m["ms"] = timed_cuda(lambda: cuda_msm.msm_fixed_cuda(s, tab, curve, window),
+                             reps)
+        m["phases_ms"] = timed_phases(
+            torch, cuda_msm.fixed_phases(s, tab, curve, window)[0], reps)
+        routes = {k: round(v["bound_ms"], 3)
+                  for k, v in fixed_table_route_bounds(n, window, curve).items()}
+        log(f"n={n} w={window} {curve.name}: fixed_table {t['ms']:.3f} ms (plain "
+            f"{tab_plain_ms:.3f} ms; bound by route {json.dumps(routes)} ms), "
+            f"msm_fixed {m['ms']:.3f} ms (plain {plain_ms:.3f} ms; phases "
+            f"{json.dumps({k: round(v, 3) for k, v in m['phases_ms'].items()})}; a "
+            f"generic-base MSM's bound {msm_bucket_bound(n, curve)['bound_ms']:.3f} ms)")
+
+    if defer is None:
+        times()
+    else:
+        defer.append(times)
+    return m, t
 
 
-def run_snarkstar(torch, dev):
-    """SnarkStar batch 1 through workloads/snarkstar.run on the card, with
-    the kernels' launches counted over the whole run; returns the counts
-    and run()'s report."""
+def run_snarkstar(torch, dev, batch_size, steps):
+    """SnarkStar at `batch_size` through workloads/snarkstar.run on the card
+    (its ladder's k and keys, real Groth16 proofs), with the kernels'
+    launches counted over the whole run; returns the counts and run()'s
+    report."""
     import gc
 
     from mira_tpu_torch.utils import tracing
     from mira_tpu_torch.workloads import snarkstar
+
+    tag = f"snarkstar batch {batch_size}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tracing.reset()
+    secs = snarkstar.run(steps=steps, batch_size=batch_size, use_mock_ck=False,
+                         real_proofs=True, num_constraints=SNARK_CONSTRAINTS,
+                         device=dev)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} (k={snarkstar.table_sizes(batch_size)[0]}, keys 2^"
+        f"{snarkstar.ck_sizes(batch_size)}) phases (s): "
+        f"{json.dumps({k: v for k, v in secs.items() if k != 'ivc'})}")
+    log(f"{tag} fold steps (s): {secs['fold_steps']}; first "
+        f"{secs['fold_steps'][0]:.3f} s")
+    log(f"{tag} launches over the run: {counts}")
+    log(f"{tag} host span tree (zero step, fold steps, decider):")
+    log(tracing.report(min_runtime=0.05))
+    log(f"{tag} peak device memory: {peak / 2**30:.3f} GiB")
+    require_launched(counts, MSM_PATH_KERNELS, f"the {tag} path")
+    return counts, secs
+
+
+def run_tensorstar(torch, dev, rng):
+    """TensorStar at k=22 through workloads/tensorstar.run on the card
+    (matrix_dim 32, mock keys as the reference's default, TS_STEPS fold
+    steps, verify(strict=True)), with the kernels' launches counted over the
+    whole run; then kernel 2 held to its plain version on row ranges of both
+    step-folding circuits' 2^22 rows, the last rows among them.  Returns the
+    counts and run()'s report."""
+    import gc
+
+    from mira_tpu_torch.utils import tracing
+    from mira_tpu_torch.workloads import tensorstar
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     tracing.reset()
-    secs = snarkstar.run(steps=SNARK_STEPS, batch_size=1, use_mock_ck=False,
-                         real_proofs=True, num_constraints=SNARK_CONSTRAINTS,
-                         device=dev)
+    secs = tensorstar.run(repeat_count=TS_STEPS, matrix_dim=TS_MATRIX_DIM,
+                          device=dev)
     counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"snarkstar phases (s): "
-        f"{json.dumps({k: v for k, v in secs.items() if k != 'ivc'})}")
-    log(f"snarkstar fold steps (s): {secs['fold_steps']}; first "
-        f"{secs['fold_steps'][0]:.3f} s")
-    log(f"snarkstar launches over the run: {counts}")
-    log("snarkstar host span tree (zero step, fold steps, decider):")
-    log(tracing.report(min_runtime=0.05))
-    log(f"snarkstar peak device memory: {peak / 2**30:.3f} GiB")
-    require_launched(counts, MSM_PATH_KERNELS, "the SnarkStar path")
+    ivc = secs.pop("ivc")
+    log(f"tensorstar (k={ivc.pp.primary.k}, mock keys 2^{ivc.pp.primary.k + 4}) "
+        f"phases (s): {json.dumps(secs)}")
+    log(f"tensorstar launches over the run: {counts}")
+    log("tensorstar host span tree (zero step, fold steps, decider):")
+    log(tracing.report(min_runtime=0.5))
+    log(f"tensorstar peak device memory: {secs['peak_bytes'] / 2**30:.3f} GiB")
+    require_launched(counts, ("fold_eval",), "the TensorStar path")
+    for S in (ivc.pp.primary.S, ivc.pp.secondary.S):
+        nrow = 1 << S.k
+        check_fold_eval(torch, dev, rng, S, ranges=[
+            (0, 4099), (nrow // 2 - 2049, nrow // 2 + 2050), (nrow - 4099, nrow)])
     return counts, secs
+
+
+def run_checkpoint(torch, dev, pp, sc1, sc2, path, want):
+    """IVC.resume from the checkpoint the k=17 path saved before its last
+    fold step, into a new IVC on the card, as in a new process that made
+    the same public parameters: it keeps the first IVC's public parameters
+    (their structures, keys and the tapes they captured, which such a
+    process makes again) and nothing that a step built from them, neither
+    the keys' multiples tables nor the tapes' replay caches (the packed and
+    device templates, the write positions, the native VM's preparation).
+    It folds that step, and its accumulators must equal the uninterrupted
+    IVC's after it (`want`); then verify(strict=True).  Returns (seconds of
+    each phase, launch counts)."""
+    from mira_tpu_torch.ivc.ivc import IVC
+
+    for ck in (pp.primary.ck, pp.secondary.ck):
+        ck.release_device_cache()
+    for captured in pp.tapes.values():
+        captured.packed_template = None
+        for field in ("dev_template_mont", "dev_template_vals", "dev_positions",
+                      "dev_positions_np", "dev_keep", "dev_static_slots"):
+            setattr(captured, field, None)
+        captured.tape._native_prep = None
+    reset_launch_counts()
+    secs = {"file_bytes": os.path.getsize(path)}
+    t0 = time.perf_counter()
+    ivc = IVC.resume(pp, sc1, sc2, path)
+    torch.cuda.synchronize()
+    secs["load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivc.fold_step()
+    torch.cuda.synchronize()
+    secs["fold_step"] = time.perf_counter() - t0
+    if not same_accumulators(accumulators(ivc), want):
+        raise AssertionError("the resumed IVC's accumulators differ from the "
+                             "uninterrupted IVC's after the same step")
+    t0 = time.perf_counter()
+    ivc.verify(strict=True)
+    torch.cuda.synchronize()
+    secs["verify"] = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"checkpoint: resumed at step {ivc.step - 1} from {secs['file_bytes']} "
+        f"bytes; its fold step's accumulators == the uninterrupted IVC's; "
+        f"verify(strict=True) passed; seconds {json.dumps(secs)}; launches {counts}")
+    require_launched(counts, MSM_PATH_KERNELS, "the checkpoint path")
+    return secs, counts
+
+
+def run_merkle_cli(torch, dev):
+    """workloads/merkle.run on the card (k=17, one fold step, mock keys as
+    the reference's default, verify(strict=True)); returns its seconds and
+    the launch counts."""
+    from mira_tpu_torch.workloads import merkle
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ivc = merkle.run(steps=1, k=K, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"merkle CLI (k={K}, one fold step, mock keys): verified in {secs:.3f} s "
+        f"end to end; root {ivc.primary.z_i[0]}; launches {counts}")
+    require_launched(counts, ("fold_eval",), "the Merkle CLI path")
+    return secs, counts
 
 
 def check_msm_large(torch, dev, rng, ck):
@@ -1156,11 +1410,12 @@ def check_msm_large(torch, dev, rng, ck):
         f"Pippenger (kernel {t_k:.3f} s incl. first launch, host {t_h:.3f} s)")
 
 
-def check_fold_eval(torch, dev, rng, S):
+def check_fold_eval(torch, dev, rng, S, ranges=None):
     """Kernel vs plain on a structure's homogeneous expression, seeded
     random witness, all fold points: on every row, and on row ranges whose
     ends are not multiples of the block, of one row, and ending on the last
-    row (where rotations wrap).  Returns the state the timings reuse."""
+    row (where rotations wrap); or on `ranges` alone (None: every row).
+    Returns the state the timings reuse."""
     from mira_tpu_torch import _build
     from mira_tpu_torch.polynomial import fold_evaluator as fe
 
@@ -1180,8 +1435,9 @@ def check_fold_eval(torch, dev, rng, S):
     w2 = ev._stack_advice(Ws2)
     jm = lf.encode(js, dev)
     _, ch = _challenge_rows(lf, js, ch1, ch2, scalars, dev)
-    ranges = [None, (nrow // 8 + 3, nrow // 2 + 1), (nrow // 3, nrow // 3 + 1),
-              (nrow - nrow // 5 - 1, nrow)]
+    if ranges is None:
+        ranges = [None, (nrow // 8 + 3, nrow // 2 + 1), (nrow // 3, nrow // 3 + 1),
+                  (nrow - nrow // 5 - 1, nrow)]
     for rows in ranges:
         got = fe.fold_eval_cuda(lf, ops_t, n_regs, ev.static_stack, w1, w2, ch, jm,
                                 consts, rows)
@@ -1195,8 +1451,8 @@ def check_fold_eval(torch, dev, rng, S):
     block = _build.lib().mira_fold_eval_block(n_regs, len(ops))
     log(f"fold_eval k={S.k} SFC over {S.curve.name} ({len(ops)} ops, {n_regs} "
         f"registers, {block} rows a block, "
-        f"{len(js)} fold points): kernel == plain (exact) on all rows and on rows "
-        f"{ranges[1:]}")
+        f"{len(js)} fold points): kernel == plain (exact) on rows "
+        f"{['all' if r is None else r for r in ranges]}")
     return (ev, ops, ops_t, n_regs, consts, w1, w2, ch, jm, js)
 
 
@@ -2080,11 +2336,72 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository "
               "(mira_tpu_torch not found)", file=sys.stderr)
         return 2
-    import gc
-
     import numpy as np
 
     from mira_tpu_torch import _build
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    t_all = time.perf_counter()
+
+    t0 = time.perf_counter()
+    card = device_lines(torch)
+    phase("device", t0)
+
+    # the keys from the start, beside the build: the k=17 path's first, then
+    # SnarkStar's 2^24 keys on both curves, which grow from them (batch 2
+    # uses them whole, batch 1 the BN254 key's first 2^23 points, the key of
+    # 2^23, and the Grumpkin key whole); SnarkStar batch 2 and its checks
+    # wait for the last key, and so bound the script's time
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
+
+    key_specs = [(BN254_G1, K + 4, "bn256"), (GRUMPKIN, K + 4, "grumpkin"),
+                 (BN254_G1, 24, "bn256"), (GRUMPKIN, 24, "grumpkin")]
+    keygen = start_keygen(key_specs)
+    # TensorStar at k=22 (mock keys) in a worker process from the start,
+    # beside the build and the small checks; SnarkStar batch 2 later in the
+    # same process (see _paths)
+    ctx = multiprocessing.get_context("spawn")
+    built = ctx.Event()
+    ts_pool = ctx.Pool(1, initializer=_worker_init, initargs=(built,))
+    try:
+        t_ts = time.perf_counter()
+        ts_job = ts_pool.apply_async(tensorstar_worker, (int(rng.integers(1 << 30)),))
+        t0 = time.perf_counter()
+        # the previous kernels, where their copy is present, build beside these
+        pool = ThreadPoolExecutor(1)
+        prev_build = pool.submit(prev_kernels, root)
+        pool.shutdown(wait=False)
+        _build.lib()
+        built.set()
+        secs = _build.build_seconds
+        log(f"kernel build: {'%.1f s' % secs if secs is not None else 'cached'}")
+        for line in _build.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
+        prev = prev_build.result()
+        log(f"previous kernels 8 and 10 (commit {PREV_COMMIT}) for the paired timing: "
+            f"{'built from ' + PREV_CSRC if prev else 'no copy at ' + PREV_CSRC + ', not timed'}")
+        phase("build", t0)
+        return _paths(args, torch, dev, rng, card, prev, t_all, ts_pool, ts_job,
+                      t_ts, key_specs, keygen)
+    finally:
+        ts_pool.terminate()
+        ts_pool.join()
+
+
+def _paths(args, torch, dev, rng, card, prev, t_all, ts_pool, ts_job, t_ts,
+           key_specs, keygen) -> int:
+    """Every path after the build (main() keeps the worker process's
+    lifetime around it).  The worker uses the card only while the main
+    process takes no kernel time: TensorStar up to the NTT path, which waits
+    for its result; SnarkStar batch 2's run and checks from the end of the
+    engine timings, while this process runs the paths that report seconds
+    of their own and batch 1's checks, whose kernel times wait until the
+    worker is done; then the worker takes batch 2's kernel times while this
+    process waits."""
+    import gc
+
     from mira_tpu_torch.ivc.ivc import IVC
     from mira_tpu_torch.ivc.public_params import CircuitSide, PublicParams
     from mira_tpu_torch.ops import cuda_msm
@@ -2097,35 +2414,6 @@ def main() -> int:
     from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
     from mira_tpu_torch.ivc.step_circuit import TrivialCircuit
     from mira_tpu_torch.workloads.poseidon import PoseidonStepCircuit
-
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(SEED)
-    t_all = time.perf_counter()
-
-    t0 = time.perf_counter()
-    card = device_lines(torch)
-    phase("device", t0)
-
-    t0 = time.perf_counter()
-    # the previous kernels, where their copy is present, build beside these
-    pool = ThreadPoolExecutor(1)
-    prev_build = pool.submit(prev_kernels, root)
-    pool.shutdown(wait=False)
-    _build.lib()
-    built = _build.build_seconds
-    log(f"kernel build: {'%.1f s' % built if built is not None else 'cached'}")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
-    prev = prev_build.result()
-    log(f"previous kernels 8 and 10 (commit {PREV_COMMIT}) for the paired timing: "
-        f"{'built from ' + PREV_CSRC if prev else 'no copy at ' + PREV_CSRC + ', not timed'}")
-    phase("build", t0)
-    # the keys after the build, whose nvcc processes want every core: the
-    # k=17 path's first, then SnarkStar's, which grow from them
-    key_specs = [(BN254_G1, K + 4, "bn256"), (GRUMPKIN, K + 4, "grumpkin"),
-                 (BN254_G1, 23, "bn256"), (GRUMPKIN, 24, "grumpkin")]
-    keygen = start_keygen(key_specs)
 
     t0 = time.perf_counter()
     small = {}
@@ -2146,6 +2434,15 @@ def main() -> int:
         poseidon_cross = small["check_poseidon_small"]
         table_err = small["check_table_edges"]
         phase("kernel_checks_small", t0)
+
+        # -- TensorStar at k=22 (mock keys), in the worker since the start:
+        # every kernel time below is taken with the card this process's alone
+        t0 = time.perf_counter()
+        ts = ts_job.get()
+        ts_counts, ts_secs = ts["counts"], ts["secs"]
+        log(f"tensorstar process: its result {time.perf_counter() - t_ts:.1f} s "
+            "after its start")
+        phase("tensorstar_wait", t0)
 
         # -- the NTT and Poseidon paths need no key: they run while the keys
         # are made
@@ -2207,7 +2504,13 @@ def main() -> int:
     reset_launch_counts()
     step_secs = []
     single = []  # the accumulators after each step, for the mesh path
-    for _ in range(FOLD_STEPS):
+    ckpt_dir = tempfile.TemporaryDirectory()
+    ckpt = os.path.join(ckpt_dir.name, f"k{K}.npz")
+    for i in range(FOLD_STEPS):
+        if i == FOLD_STEPS - 1:  # the state before the last step, resumed below
+            t0 = time.perf_counter()
+            ivc.save_checkpoint(ckpt)
+            ckpt_save = time.perf_counter() - t0
         t0 = time.perf_counter()
         ivc.fold_step()
         torch.cuda.synchronize()
@@ -2359,6 +2662,17 @@ def main() -> int:
     pippenger_err = max(pippenger_err, check_pippenger_chunks(
         torch, dev, rng, ck1, cuda_msm.PIPPENGER_CHUNK))
     phase("msm_engine_timing", t0)
+    # SnarkStar batch 2 in the worker once its keys are made: beside the
+    # rest of this process's paths (the kernel timings are done)
+    t0 = time.perf_counter()
+    for (_, k, label), fut in zip(key_specs[2:], keygen[2:]):
+        log(f"keygen {label} 2^{k} (native, background thread, from the 2^{K + 4} "
+            f"key): {fut.result():.3f} s")
+    seen = {(a["curve"], a["n"], a["window"]) for a in msm_at}
+    b2_job = ts_pool.apply_async(snarkstar_b2_worker,
+                                 (int(rng.integers(1 << 30)), seen))
+    t_b2 = time.perf_counter()
+    phase("snarkstar_keys_wait", t0)
     t0 = time.perf_counter()
     deciders = run_engine_deciders(torch, ivc)
     phase("msm_engine_deciders", t0)
@@ -2366,6 +2680,14 @@ def main() -> int:
     mesh_secs, mesh_counts, mesh_peak, mesh_verify = run_mesh_path(
         torch, dev, pp, sc1, sc2, single, args.profile)
     phase("mesh_path", t0)
+    t0 = time.perf_counter()
+    ckpt_secs, ckpt_counts = run_checkpoint(torch, dev, pp, sc1, sc2, ckpt, single[-1])
+    ckpt_secs["save"] = ckpt_save
+    ckpt_dir.cleanup()
+    log(f"checkpoint of the k={K} IVC before its step {FOLD_STEPS}: saved in "
+        f"{ckpt_save:.3f} s, {ckpt_secs['file_bytes']} bytes; loaded (IVC.resume) in "
+        f"{ckpt_secs['load']:.3f} s")
+    phase("checkpoint", t0)
     del single
     t0 = time.perf_counter()
     dry_secs, dry_counts = run_dryrun(torch, dev)
@@ -2488,14 +2810,14 @@ def main() -> int:
         phase("profile", t0)
     del ivc, pp, ck, ck1, ck2, P, s, s21, P21, fe_state, ev, w1, w2
 
+    # -- the Merkle CLI at k=17 (mock keys) ------------------------------------
+    t0 = time.perf_counter()
+    merkle_secs, merkle_counts = run_merkle_cli(torch, dev)
+    phase("merkle_cli", t0)
+
     # -- SnarkStar batch 1 at k=19 with real Groth16 proofs -------------------
     t0 = time.perf_counter()
-    for (_, k, label), fut in zip(key_specs[2:], keygen[2:]):
-        log(f"keygen {label} 2^{k} (native, background thread, from the 2^{K + 4} "
-            f"key): {fut.result():.3f} s")
-    phase("snarkstar_keys_wait", t0)
-    t0 = time.perf_counter()
-    snark_counts, report = run_snarkstar(torch, dev)
+    snark_counts, report = run_snarkstar(torch, dev, 1, SNARK_STEPS)
     phase("snarkstar", t0)
     for k in kernels:
         if k["name"] in MSM_PATH_KERNELS:
@@ -2506,20 +2828,49 @@ def main() -> int:
     # rows, on the structures and keys the run used
     t0 = time.perf_counter()
     pp_s = report.pop("ivc").pp
+    pending = []  # their kernel times, taken once the worker is done
     for side in (pp_s.primary, pp_s.secondary):
         shapes = [sh for sh in report["tables"][side.ck.curve.name]
                   if sh not in early]
-        m, t = fixed_checks(torch, dev, rng, side.ck, shapes, "snarkstar")
+        m, t = fixed_checks(torch, dev, rng, side.ck, shapes, "snarkstar",
+                            defer=pending)
         kernels[2]["at"] += m
         kernels[3]["at"] += t
         check_fold_eval(torch, dev, rng, side.S)
         kernels[1].setdefault("at", []).append(
             {"path": "snarkstar", "curve": side.ck.curve.name, "nrow": 1 << side.S.k,
              "max_abs_err": 0})
-    for k in kernels[2:4]:
-        k["max_abs_err"] = max(a["max_abs_err"] for a in k["at"])
     del pp_s, report, side
     phase("snarkstar_kernel_checks", t0)
+
+    kernels[1]["at"].append({"path": "tensorstar", "nrow": 1 << 22,
+                             "rows": "ranges", "max_abs_err": 0})
+
+    # -- SnarkStar batch 2 at k=20 with real Groth16 proofs, in the worker --
+    t0 = time.perf_counter()
+    b2 = b2_job.get()
+    b2_counts = b2["counts"]
+    log(f"snarkstar batch 2 (process): {time.perf_counter() - t_b2:.1f} s from its "
+        f"submission to its result; phases (s) {json.dumps(b2['secs'])}")
+    phase("snarkstar_b2_wait", t0)
+    # the kernel times at both batches' shapes, each process's while the
+    # other waits
+    t0 = time.perf_counter()
+    for times in pending:
+        times()
+    b2.update(ts_pool.apply_async(snarkstar_b2_times).get())
+    for k, name in zip(kernels[1:4], ("fold_eval", "msm_fixed", "fixed_table")):
+        k["at"] += b2[name]
+    for k in kernels[2:4]:
+        k["max_abs_err"] = max(a["max_abs_err"] for a in k["at"])
+    phase("snarkstar_kernel_times", t0)
+    for k in kernels:
+        for path, counts in (("tensorstar", ts_counts), ("snarkstar_b2", b2_counts),
+                             ("checkpoint", ckpt_counts), ("merkle_cli", merkle_counts)):
+            if counts.get(k["name"]):
+                k[f"launches_{path}"] = counts[k["name"]]
+    log("new paths: " + json.dumps({
+        "tensorstar_s": ts_secs, "checkpoint_s": ckpt_secs, "merkle_cli_s": merkle_secs}))
 
     if "jax" in sys.modules or "mira_tpu" in sys.modules:
         raise AssertionError("jax or mira_tpu was imported")

@@ -39,14 +39,30 @@ _LZ = NUM_LIMBS + 1  # lazy limb count (limb 16 carries the overflow)
 _MAX_W = 32  # bound on the weight of a sum
 _MAX_WW = 96  # bound on the product of a product's operand weights
 _CHUNK = 1 << 16  # elements per chunk of a large product (bounds temporaries)
+_TWO_64 = 1 << 64
+_ROWS = 1 << 22  # elements per block of a whole-witness elementwise op (LimbField.rowwise)
 
 
 def ints_to_words(vals) -> np.ndarray:
     """Python ints (< 2^256) / host field elements -> (n, 8) int32 words."""
-    buf = b"".join(
-        (v if isinstance(v, int) else v.v).to_bytes(32, "little") for v in vals
-    )
-    return np.frombuffer(buf, dtype="<i4").reshape(len(vals), NUM_WORDS).copy()
+    return int_list_words([v if type(v) is int else v.v for v in vals])
+
+
+def int_list_words(vals: list) -> np.ndarray:
+    """A list of Python ints in [0, 2^256) -> (n, 8) int32 words: zeros and
+    values below 2^64 in a numpy pass, only the others one by one."""
+    out = np.zeros((len(vals), 4), dtype="<u8")
+    a = np.array(vals, dtype=object)
+    nz = np.flatnonzero(a)
+    if len(nz):
+        v = a[nz]
+        small = (v < _TWO_64).astype(bool)
+        out[nz[small], 0] = v[small].astype(np.uint64)
+        big = nz[~small]
+        if len(big):
+            buf = b"".join(x.to_bytes(32, "little") for x in a[big].tolist())
+            out[big] = np.frombuffer(buf, dtype="<u8").reshape(len(big), 4)
+    return out.view("<i4").reshape(len(vals), NUM_WORDS)
 
 
 def words_to_ints(arr) -> list:
@@ -58,6 +74,25 @@ def words_to_ints(arr) -> list:
     return [
         int.from_bytes(buf[32 * i : 32 * (i + 1)], "little")
         for i in range(flat.shape[0])
+    ]
+
+
+def ints_to_limbs(vals) -> np.ndarray:
+    """Python ints -> (n, 16) uint32 16-bit limbs, mira_tpu's host layout
+    (copied from mira_tpu/fields/limbs.py)."""
+    buf = b"".join(
+        [(v if isinstance(v, int) else v.v).to_bytes(32, "little") for v in vals]
+    )
+    u16 = np.frombuffer(buf, dtype="<u2").reshape(len(vals), NUM_LIMBS)
+    return u16.astype(np.uint32)
+
+
+def limbs_to_ints(arr) -> list:
+    """(n, 16) limb array -> Python ints (copied from mira_tpu/fields/limbs.py)."""
+    flat = np.asarray(arr).reshape(-1, NUM_LIMBS).astype("<u2")
+    buf = flat.tobytes()
+    return [
+        int.from_bytes(buf[32 * i : 32 * (i + 1)], "little") for i in range(len(flat))
     ]
 
 
@@ -304,11 +339,8 @@ class LimbField:
     def encode(self, vals, device="cpu") -> torch.Tensor:
         """Python ints / host field elements -> Montgomery words."""
         m = self.modulus
-        ints = [v if isinstance(v, int) else v.v for v in vals]
-        raw = torch.from_numpy(
-            ints_to_words([v if 0 <= v < m else v % m for v in ints])
-        ).to(device)
-        return self.from_plain(raw)
+        ints = [(v if type(v) is int else v.v) % m for v in vals]
+        return self.from_plain(torch.from_numpy(int_list_words(ints)).to(device))
 
     def encode_raw16(self, raw16, device="cpu") -> torch.Tensor:
         """(n, 16) uint32 plain 16-bit limb planes (values < p), as mira_tpu
@@ -368,14 +400,30 @@ class LimbField:
         """Fermat inversion (maps 0 -> 0)."""
         return self.pow_int(a, self.modulus - 2)
 
+    def rowwise(self, fn, *ts):
+        """fn over blocks of at most _ROWS elements of (..., 8) word tensors
+        of one shape (an elementwise fn): a product's lazy limbs take 17
+        int64 an element, several at once, which over a whole 2^22-row
+        witness would not fit the card."""
+        shape = ts[0].shape
+        flat = [t.reshape(-1, NUM_WORDS) for t in ts]
+        n = flat[0].shape[0]
+        if n <= _ROWS:
+            return fn(*ts)
+        out = torch.empty_like(flat[0])
+        for lo in range(0, n, _ROWS):
+            out[lo : lo + _ROWS] = fn(*(t[lo : lo + _ROWS] for t in flat))
+        return out.reshape(shape)
+
     def to_plain(self, a):
         """Montgomery -> plain words (a * 1 * R^-1)."""
-        return self.canon(self.lz(a) * self.lz_raw(1, a.shape[:-1], a.device))
+        return self.rowwise(lambda x: self.canon(
+            self.lz(x) * self.lz_raw(1, x.shape[:-1], x.device)), a)
 
     def from_plain(self, a):
         """Plain words -> Montgomery (a * R^2 * R^-1)."""
-        r2 = self.lz_raw(self.r2, a.shape[:-1], a.device)
-        return self.canon(self.lz(a) * r2)
+        return self.rowwise(lambda x: self.canon(
+            self.lz(x) * self.lz_raw(self.r2, x.shape[:-1], x.device)), a)
 
     def is_zero(self, a):
         return (a == 0).all(-1)

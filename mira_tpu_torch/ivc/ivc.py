@@ -57,16 +57,8 @@ class IVC:
         secondary_z_0: List[int],
         debug_mode: bool = False,
     ):
-        self.pp = pp
-        self.primary_circuit = primary
-        self.secondary_circuit = secondary
-        self.debug_mode = debug_mode
-        self._tapes = {}
-
-        primary_ro = lambda: PoseidonHash(pp.primary.params.ro_spec)
-        secondary_ro = lambda: PoseidonHash(pp.secondary.params.ro_spec)
-        self._primary_ro = primary_ro
-        self._secondary_ro = secondary_ro
+        self._init_common(pp, primary, secondary, debug_mode)
+        primary_ro, secondary_ro = self._primary_ro, self._secondary_ro
 
         # ------- zero step, primary side (ivc :196-280)
         sec_pre_trace = pp.secondary_initial_plonk_trace
@@ -115,7 +107,6 @@ class IVC:
             side="primary",
         )
 
-        self.primary_nifs_pp, _ = VanillaFS.setup_params(pp.digest_1, pp.primary.S)
         primary_trace = VanillaFS.generate_plonk_trace(
             pp.primary.ck, primary_instance, primary_witness,
             self.primary_nifs_pp, secondary_ro(),
@@ -161,7 +152,6 @@ class IVC:
             pp.secondary.k, secondary_sfc, secondary_instance,
             pp.secondary_curve, side="secondary",
         )
-        self.secondary_nifs_pp, _ = VanillaFS.setup_params(pp.digest_2, pp.secondary.S)
         secondary_trace = VanillaFS.generate_plonk_trace(
             pp.secondary.ck, secondary_instance, secondary_witness,
             self.secondary_nifs_pp, primary_ro(),
@@ -174,6 +164,21 @@ class IVC:
             secondary_relaxed, list(secondary_z_0), secondary_z_out
         )
 
+    def _init_common(self, pp, primary, secondary, debug_mode):
+        """What a new IVC and a resumed one share: the public parameters,
+        the circuits, the tapes the public parameters captured (the zero
+        step and every later step replay them), the random oracles and both
+        sides' NIFS parameters."""
+        self.pp = pp
+        self.primary_circuit = primary
+        self.secondary_circuit = secondary
+        self.debug_mode = debug_mode
+        self._tapes = dict(pp.tapes)
+        self._primary_ro = lambda: PoseidonHash(pp.primary.params.ro_spec)
+        self._secondary_ro = lambda: PoseidonHash(pp.secondary.params.ro_spec)
+        self.primary_nifs_pp, _ = VanillaFS.setup_params(pp.digest_1, pp.primary.S)
+        self.secondary_nifs_pp, _ = VanillaFS.setup_params(pp.digest_2, pp.secondary.S)
+
     # ------------------------------------------------------------------
     def _synthesize(self, k, sfc, instance, curve, side=None):
         with span("synthesize"):
@@ -184,17 +189,14 @@ class IVC:
         # synthesis of each circuit side as a straight-line program, replay
         # it for later steps.  Debug mode keeps the plain path (mock_check
         # wants the full table).
-        import os
+        from .tape_runner import capture_sfc, replay_sfc, uses_tape
 
         use_tape = (
             side is not None
             and not self.debug_mode
-            and getattr(sfc.step_circuit, "tape_safe", False)
-            and os.environ.get("MIRA_SYNTH", "tape") == "tape"
+            and uses_tape(sfc.step_circuit)
         )
         if use_tape:
-            from .tape_runner import capture_sfc, replay_sfc
-
             captured = self._tapes.get(side)
             if captured is None:
                 captured, witness = capture_sfc(k, sfc, instance, curve)
@@ -307,6 +309,46 @@ class IVC:
             self.secondary_nifs_pp, self._primary_ro(), mesh=mesh,
         )
         self.step += 1
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str):
+        """Persist the full prover state (see ivc/checkpoint.py)."""
+        from .checkpoint import save
+
+        save(self, path)
+
+    def load_checkpoint(self, path: str) -> "IVC":
+        """Restore state saved by save_checkpoint into this IVC (must be
+        built with the same PublicParams/circuits)."""
+        from .checkpoint import load
+
+        return load(self, path)
+
+    @classmethod
+    def resume(
+        cls,
+        pp: PublicParams,
+        primary: StepCircuit,
+        secondary: StepCircuit,
+        path: str,
+        debug_mode: bool = False,
+    ) -> "IVC":
+        """Construct an IVC directly from a checkpoint without running the
+        zero step.  `pp` and the circuits must match the ones the checkpoint
+        was saved under (the restored instances hash pp digests, so a
+        mismatch fails `verify`).  The resumed IVC replays the tapes the
+        public parameters captured, as the IVC that saved the checkpoint
+        did (a side the public parameters did not capture is captured by
+        the first `fold_step`)."""
+        from .checkpoint import load
+
+        ivc = cls.__new__(cls)
+        ivc._init_common(pp, primary, secondary, debug_mode)
+        ivc.primary = _Context(None, [], [])
+        ivc.secondary = _Context(None, [], [])
+        ivc.secondary_trace = None
+        ivc.step = 0
+        return load(ivc, path)
 
     # ------------------------------------------------------------------
     @instrument

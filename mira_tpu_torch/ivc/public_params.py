@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 from ..constants import NUM_HASH_BITS
@@ -26,6 +27,7 @@ from ..table.circuit import ConstraintSystem
 from ..table.runner import CircuitRunner, build_metainfo
 from .instance_computation import compute_instance_hash
 from ..ivc.step_circuit import StepCircuit
+from .tape_runner import capture_runner, uses_tape
 from .step_folding_circuit import (
     NUM_IO,
     StepFoldingCircuit,
@@ -132,6 +134,12 @@ class PublicParams:
             primary.k, primary_sfc, [0] * NUM_IO, primary_curve,
             primary.num_g1, primary.num_g2, primary.gt_degree, primary.gt_cross_terms,
         )
+        # a tape-safe side is synthesized once, here, in capture mode: the
+        # structure comes from the captured table, and the IVC's zero step
+        # replays the tape with its own inputs instead of synthesizing again
+        self.tapes = {}
+        if uses_tape(primary.step_circuit):
+            self.tapes["primary"] = capture_runner(primary_runner)
         self.primary = CircuitPublicParams(
             S=primary_runner.collect_structure(),
             ck=primary.ck,
@@ -176,6 +184,8 @@ class PublicParams:
             secondary.num_g1, secondary.num_g2, secondary.gt_degree,
             secondary.gt_cross_terms,
         )
+        if uses_tape(secondary.step_circuit):
+            self.tapes["secondary"] = capture_runner(secondary_runner)
         secondary_S = secondary_runner.collect_structure()
         # attached before the initial trace below: the zero-step SPS must
         # already draw real proof elements
@@ -207,24 +217,26 @@ class PublicParams:
     def _digest_bits(self) -> int:
         """SHA3 digest of the structural public parameters, truncated to
         NUM_HASH_BITS (reference digest.rs:17-64; serialization layout is
-        this framework's own canonical form)."""
-        def structure_repr(S: PlonkStructure):
+        this framework's own canonical form).  The four large hashes (each
+        side's fixed columns and permutation) run as threads of their own:
+        hashlib lets go of the GIL while it hashes a large buffer."""
+        sides = (self.primary, self.secondary)
+        with ThreadPoolExecutor(4) as pool:
+            fixed = [pool.submit(_sha3_hex, _fixed_bytes(side.S)) for side in sides]
+            perm = [pool.submit(_sha3_hex,
+                                side.S.permutation_matrix.json_chunks(side.ck.device))
+                    for side in sides]
+            hashes = [(f.result(), q.result()) for f, q in zip(fixed, perm)]
+
+        def structure_repr(S: PlonkStructure, fixed_hex: str, perm_hex: str):
             return {
                 "k": S.k,
                 "num_io": S.num_io,
                 "num_advice": S.num_advice_columns,
                 "num_challenges": S.num_challenges,
                 "round_sizes": S.round_sizes,
-                "fixed": hashlib.sha3_256(
-                    b"".join(
-                        v.to_bytes(32, "little")
-                        for col in S.fixed_columns
-                        for v in col
-                    )
-                ).hexdigest(),
-                "perm": hashlib.sha3_256(
-                    json.dumps(sorted(S.permutation_matrix)).encode()
-                ).hexdigest(),
+                "fixed": fixed_hex,
+                "perm": perm_hex,
                 "num_g1": S.num_g1_elems,
                 "num_g2": S.num_g2_elems,
                 "gt_degree": S.target_group_folding_degree,
@@ -233,8 +245,8 @@ class PublicParams:
 
         payload = json.dumps(
             {
-                "primary": structure_repr(self.primary.S),
-                "secondary": structure_repr(self.secondary.S),
+                "primary": structure_repr(self.primary.S, *hashes[0]),
+                "secondary": structure_repr(self.secondary.S, *hashes[1]),
                 "limb_width": self.limb_width,
                 "limbs_count": self.limbs_count,
             },
@@ -242,6 +254,31 @@ class PublicParams:
         ).encode()
         h = hashlib.sha3_256(payload).digest()
         return int.from_bytes(h, "little") & ((1 << NUM_HASH_BITS) - 1)
+
+
+def _sha3_hex(chunks) -> str:
+    h = hashlib.sha3_256()
+    for c in chunks:
+        h.update(c)
+    return h.hexdigest()
+
+
+_ZEROS = bytes(1 << 25)
+
+
+def _fixed_bytes(S: PlonkStructure):
+    """The bytes of every value of every fixed column, 32 little-endian
+    bytes each, in order (mira_tpu hashes `v.to_bytes(32, "little")` per
+    value): each column's words up to its last nonzero value, then its zero
+    tail from one buffer of zeros."""
+    for words, col in zip(S.fixed_words(), S.fixed_columns):
+        if len(words):
+            yield words
+        tail = 32 * (len(col) - len(words))
+        while tail:
+            n = min(tail, len(_ZEROS))
+            yield memoryview(_ZEROS)[:n]
+            tail -= n
 
 
 def _into_curve_from_bits(curve: CurveParams, bits_value: int) -> AffinePoint:

@@ -181,8 +181,34 @@ class CapturedSynthesis:
     uid: int = dataclasses.field(default_factory=lambda: next(_UID))
 
 
+def uses_tape(step_circuit) -> bool:
+    """Whether step-folding circuits over `step_circuit` are synthesized
+    once and then replayed from the witness tape."""
+    import os
+
+    return (getattr(step_circuit, "tape_safe", False)
+            and os.environ.get("MIRA_SYNTH", "tape") == "tape")
+
+
+def capture_runner(runner):
+    """Synthesize `runner`'s step-folding circuit once in capture mode and
+    keep the captured table as the runner's synthesis (its structure and
+    witness are a plain synthesis's: the same cells, fixed values and
+    copies).  Returns the CapturedSynthesis, which later syntheses of the
+    same circuit replay with their own inputs."""
+    captured, cs, table = _capture(runner.k, runner.circuit, runner.instance,
+                                   runner.curve)
+    runner.use_synthesis(cs, table)
+    return captured
+
+
 def capture_sfc(k: int, sfc: StepFoldingCircuit, instance: List[int], curve):
     """Synthesize once in capture mode; returns (CapturedSynthesis, witness)."""
+    captured, _cs, table = _capture(k, sfc, instance, curve)
+    return captured, table.advice
+
+
+def _capture(k: int, sfc: StepFoldingCircuit, instance: List[int], curve):
     tape = Tape()
     wrapped_inputs = _traverse_step_inputs(sfc.inputs, tape.input)
     wrapped_sc = sfc.step_circuit.wrap_for_tape(tape)
@@ -202,7 +228,7 @@ def capture_sfc(k: int, sfc: StepFoldingCircuit, instance: List[int], curve):
         k=k,
         modulus=curve.scalar_modulus,
     )
-    return captured, table.advice
+    return captured, cs, table
 
 
 def replay_sfc(captured: CapturedSynthesis, sfc: StepFoldingCircuit, device):
@@ -237,15 +263,11 @@ def _replay_device(captured: CapturedSynthesis, inputs: List[int], device):
 
     if captured.dev_positions is None:  # one-time per tape
         writes = captured.tape.writes
-        dyn_pos = np.asarray(
-            [writes[w][0] * nrow + writes[w][1] for w in prep["dyn_writes"]],
-            dtype=np.int64,
-        )
-        static_pos = np.asarray(
-            [writes[w][0] * nrow + writes[w][1]
-             for w, _slot in prep["static_input_writes"]],
-            dtype=np.int64,
-        )
+        cells = np.fromiter((c * nrow + r for c, r, _slot in writes), np.int64,
+                            len(writes))
+        dyn_pos = cells[prep["dyn_writes"]]
+        static_pos = cells[np.asarray(
+            [w for w, _slot in prep["static_input_writes"]], dtype=np.int64)]
         combined = np.concatenate([dyn_pos, static_pos])
         # each position once, keeping the LAST write per cell (the
         # sequential host-scatter semantics), ordered by position

@@ -108,7 +108,7 @@ class ProtoGalaxy:
         if key not in cache:
             cache[key] = [
                 FoldEvaluator(g, S.modulus, S.num_advice_columns,
-                              S.num_lookups(), S.selectors, S.fixed_columns,
+                              S.num_lookups(), S.selectors, S.fixed_words(),
                               1 << S.k, device)
                 for g in S.gates
             ]

@@ -43,7 +43,7 @@ from ..curves.host import AffinePoint, CurveParams, LazyAffinePoint
 from ..fields.host import field
 
 from ..curves.torch_curve import jacobian_ops
-from ..fields.limbs import limb_field
+from ..fields.limbs import ints_to_limbs, limb_field, limbs_to_ints
 from ..utils.tracing import span
 from .cuda_msm import fixed_table, msm_fixed
 from .msm import METHODS, encode_scalars, fixed_base_window, msm
@@ -92,21 +92,9 @@ def _validate_limbs_on_curve(curve: CurveParams, limbs: np.ndarray):
             raise ValueError(f"corrupted commitment key cache: {bad} points off-curve")
         return
     F = field(curve.base_modulus)
-    for x, y in zip(_limbs_to_ints(limbs[:, 0]), _limbs_to_ints(limbs[:, 1])):
+    for x, y in zip(limbs_to_ints(limbs[:, 0]), limbs_to_ints(limbs[:, 1])):
         if not AffinePoint(curve, F(x), F(y)).is_on_curve():
             raise ValueError("corrupted commitment key cache")
-
-
-def _limbs_to_ints(arr) -> list:
-    """(n, 16) uint32 16-bit limbs -> ints."""
-    buf = np.ascontiguousarray(arr, dtype=np.uint32).astype("<u2").tobytes()
-    return [int.from_bytes(buf[32 * i : 32 * (i + 1)], "little")
-            for i in range(len(buf) // 32)]
-
-
-def _ints_to_limbs(vals) -> np.ndarray:
-    buf = b"".join(v.to_bytes(32, "little") for v in vals)
-    return np.frombuffer(buf, dtype="<u2").reshape(len(vals), 16).astype(np.uint32)
 
 
 def _key_rows(curve: CurveParams, label: bytes, start: int, stop: int) -> np.ndarray:
@@ -132,8 +120,8 @@ def _key_rows(curve: CurveParams, label: bytes, start: int, stop: int) -> np.nda
     if lib is None:
         htc = hash_to_curve(curve, "from_uniform_bytes")
         pts = [htc(stream[32 * i : 32 * (i + 1)]) for i in range(n)]
-        return np.stack([_ints_to_limbs([p.x.v for p in pts]),
-                         _ints_to_limbs([p.y.v for p in pts])], axis=1)
+        return np.stack([ints_to_limbs([p.x.v for p in pts]),
+                         ints_to_limbs([p.y.v for p in pts])], axis=1)
     p = curve.base_modulus
     fparams, q_bytes, q12_bytes, s = _field_pack(p)
     svdw = np.concatenate([_int_to_u64x4(v)
@@ -178,6 +166,7 @@ class CommitmentKey:
         self.device = torch.device(device)
         self.generic_method = generic_method
         self._limbs = np.ascontiguousarray(limbs, dtype=np.uint32)
+        self._points: Optional[List[AffinePoint]] = None
         self._enc_cache = None
         self._fb_tables = {}  # padded MSM width -> (window, table)
         self._fb_seen = {}  # padded MSM width -> sightings without a table
@@ -197,6 +186,18 @@ class CommitmentKey:
 
     def __len__(self):
         return self._limbs.shape[0]
+
+    @property
+    def points(self) -> List[AffinePoint]:
+        """The key's points on the host, made from its limbs on first use
+        (the host MSMs of pcs/ipa.py read them)."""
+        if self._points is None:
+            F = field(self.curve.base_modulus)
+            xs = limbs_to_ints(self._limbs[:, 0])
+            ys = limbs_to_ints(self._limbs[:, 1])
+            self._points = [AffinePoint(self.curve, F(x), F(y))
+                            for x, y in zip(xs, ys)]
+        return self._points
 
     def _encode_rows(self, sub: np.ndarray):
         """(m, 2, 16) raw limbs -> (X, Y, Z) Montgomery words on the device."""
@@ -444,7 +445,7 @@ class CommitmentKey:
         path = self._aux_path(name)
         if path is None or not os.path.exists(path):
             return None
-        xv, yv, inf = _limbs_to_ints(np.load(path))
+        xv, yv, inf = limbs_to_ints(np.load(path))
         if inf:
             return AffinePoint.identity(self.curve)
         F = field(self.curve.base_modulus)
@@ -455,7 +456,7 @@ class CommitmentKey:
 
     def _save_template_commit(self, name: str, pt: AffinePoint):
         vals = [0, 0, 1] if pt.is_inf else [pt.x.v, pt.y.v, 0]
-        self._write(name, _ints_to_limbs(vals))
+        self._write(name, ints_to_limbs(vals))
 
 
 def _table_bytes(n: int, window: int) -> int:

@@ -18,7 +18,7 @@ import torch
 
 from ..curves.host import AffinePoint, CurveParams
 
-from ..fields.limbs import limb_field
+from ..fields.limbs import limb_field, words_to_ints
 
 
 class MockCommitmentKey:
@@ -27,14 +27,22 @@ class MockCommitmentKey:
         self.curve = curve
         self.device = torch.device(device)
         self.size = 1 << k
-        r = curve.scalar_modulus
         seed = hashlib.shake_256(b"mira-mock-ck" + label).digest(16 * self.size)
-        self.weights = [
-            int.from_bytes(seed[16 * i : 16 * (i + 1)], "little") % r
-            for i in range(self.size)
-        ]
-        self._w64 = None
+        # weight i is the digest's i-th 16-byte little-endian chunk; below
+        # 2^128, far below either scalar modulus, so mira_tpu's `% r` never
+        # changes it: the native (n, 4) uint64 form is two zero-padded words
+        self._w64 = np.zeros((self.size, 4), dtype=np.uint64)
+        self._w64[:, :2] = np.frombuffer(seed, dtype="<u8").reshape(self.size, 2)
+        self._weights = None
         self._gen = AffinePoint.generator(curve)
+
+    @property
+    def weights(self) -> List[int]:
+        """The weights as Python ints (built on first use: only
+        `commit_ints` reads them)."""
+        if self._weights is None:
+            self._weights = words_to_ints(self._w64.view("<i4"))
+        return self._weights
 
     def __len__(self):
         return self.size
@@ -52,7 +60,7 @@ class MockCommitmentKey:
         (n, 8) int32 words are the byte image of its (n, 4) uint64 limbs.
         The mock key has no MSM to shard: with a mesh every rank computes
         the same inner product."""
-        from ..fields.native64 import available, inner_product_mont, ints_to_64
+        from ..fields.native64 import available, inner_product_mont
 
         n = witness_mont.shape[0]
         if n > self.size:
@@ -60,8 +68,6 @@ class MockCommitmentKey:
         r = self.curve.scalar_modulus
         if not available():
             return self.commit_ints(limb_field(r).decode(witness_mont))
-        if self._w64 is None:
-            self._w64 = ints_to_64(self.weights)
         words = np.ascontiguousarray(witness_mont.detach().cpu().numpy(), dtype="<i4")
         acc = inner_product_mont(r, self._w64, words.view("<u8").reshape(n, 4))
         return self._gen.scalar_mul(acc)

@@ -31,7 +31,14 @@ from ..polynomial.expression import (
     QueryIndexContext,
 )
 
-from ..fields.limbs import NUM_WORDS, ints_to_words, limb_field, words_to_ints
+from ..fields.limbs import (
+    NUM_WORDS,
+    int_list_words,
+    ints_to_words,
+    limb_field,
+    words_to_ints,
+)
+from ..table.circuit import PermutationMatrix
 from ..polynomial.evaluator import ColumnEvaluator, EvalDomain, eval_rows_host
 from ..utils.tracing import span
 
@@ -114,7 +121,7 @@ class PlonkStructure:
     round_sizes: List[int]
     compressed_gates: CompressedGates
     gates: List[Expression]
-    permutation_matrix: List[Tuple[int, int, int]]  # sparse (row, col, val)
+    permutation_matrix: PermutationMatrix  # sparse, identity implied
     lookup_arguments: Optional[LookupArguments]
     num_g1_elems: int = 0
     num_g2_elems: int = 0
@@ -171,6 +178,18 @@ class PlonkStructure:
                 self.selectors, self.fixed_columns, 1 << self.k, device)
         return cache[key]
 
+    def fixed_words(self) -> List[np.ndarray]:
+        """Each fixed column's plain words up to its last nonzero value,
+        ((last, 8) int32; the rest of the column is zero), made once."""
+        from ..table.packed import _last_nonzero
+
+        words = getattr(self, "_fixed_words", None)
+        if words is None:
+            words = [int_list_words(col[:_last_nonzero(col)])
+                     for col in self.fixed_columns]
+            object.__setattr__(self, "_fixed_words", words)
+        return words
+
     def fold_evaluator(self, device):
         """The multi-point fold evaluator of the homogeneous expression
         (polynomial/fold_evaluator.py): the kernel on the card."""
@@ -182,7 +201,7 @@ class PlonkStructure:
             cache[key] = FoldEvaluator(
                 self.compressed_gates.homogeneous, self.modulus,
                 self.num_advice_columns, self.num_lookups(), self.selectors,
-                self.fixed_columns, 1 << self.k, device)
+                self.fixed_words(), 1 << self.k, device)
         return cache[key]
 
     def _eval_full(self, which: str, Ws, challenges):
@@ -238,28 +257,24 @@ class PlonkStructure:
         """P*Z = Z with Z = instance || advice part of W[0]."""
         p = self.modulus
         nrow = 1 << self.k
+        P = self.permutation_matrix
         w_plain = self.lf.to_plain(W.W[0][: nrow * self.num_advice_columns])
-        general = [e for e in self.permutation_matrix if e[2] != 1]
-        if not general:
-            # unit entries (one (i, j, 1) per row): Z[i] == Z[j] on the
-            # non-identity entries, compared on the plain words
-            idx = getattr(self, "_perm_idx", None)
-            if idx is None:
-                pairs = [(i, j) for (i, j, v) in self.permutation_matrix if i != j]
-                idx = (torch.tensor([i for i, _ in pairs], dtype=torch.int64),
-                       torch.tensor([j for _, j in pairs], dtype=torch.int64))
-                object.__setattr__(self, "_perm_idx", idx)
+        if (P.v == 1).all():
+            # unit entries: (P*Z)[i] = Z[j], and the implied ones hold, so
+            # compare Z[i] with Z[j] on the moved entries' plain words
             inst = torch.from_numpy(
                 ints_to_words([v % p for v in U.instance])
                 if U.instance else np.zeros((0, NUM_WORDS), np.int32)
             ).to(w_plain.device)
             ZR = torch.cat((inst, w_plain))
-            i_idx, j_idx = (t.to(w_plain.device) for t in idx)
+            moved = P.i != P.j
+            i_idx, j_idx = (torch.from_numpy(a[moved]).to(w_plain.device)
+                            for a in (P.i, P.j))
             mismatch = int((ZR[i_idx] != ZR[j_idx]).any(-1).sum())
         else:
             Z = [v % p for v in U.instance] + words_to_ints(w_plain)
             y = [0] * len(Z)
-            for (i, j, v) in self.permutation_matrix:
+            for (i, j, v) in P:
                 y[i] = (y[i] + v * Z[j]) % p
             mismatch = sum(1 for a, b in zip(y, Z) if a % p != b % p)
         if mismatch:
@@ -667,8 +682,8 @@ class RelaxedPlonkWitness:
 
         if mesh is None:
             return RelaxedPlonkWitness(
-                lf, [rlc(a, b) for a, b in zip(self.W, W2.W)],
-                fold_E(self.E, *cross_terms))
+                lf, [lf.rowwise(rlc, a, b) for a, b in zip(self.W, W2.W)],
+                lf.rowwise(fold_E, self.E, *cross_terms))
         return RelaxedPlonkWitness(
             lf, [mesh.rowwise(rlc, a, b) for a, b in zip(self.W, W2.W)],
             mesh.rowwise(fold_E, self.E, *cross_terms))

@@ -231,7 +231,9 @@ class FoldEvaluator:
     """Multi-point fold evaluation of one expression on `device`.
 
     Query layout follows evaluator.EvalDomain: indices cover selectors,
-    fixed, then the W1 fold-variable range."""
+    fixed, then the W1 fold-variable range.  `fixed` holds each fixed
+    column's plain words up to its last nonzero value
+    (PlonkStructure.fixed_words)."""
 
     def __init__(self, expr: Expression, modulus: int, num_advice: int,
                  num_lookup: int, selectors, fixed, nrow: int, device="cpu"):
@@ -251,13 +253,12 @@ class FoldEvaluator:
             rot = q.rotation % nrow
             if q.index < n_sel + n_fix:
                 self.qslot[q] = ("s", len(static_cols))
-                if q.index < n_sel:
-                    col = [1 if b else 0 for b in selectors[q.index]]
-                else:
-                    col = list(fixed[q.index - n_sel])
-                if rot:
-                    col = col[rot:] + col[:rot]
-                static_cols.append(col)
+                # plain words, zero-padded to nrow
+                part = (ints_to_words([1 if b else 0 for b in selectors[q.index]])
+                        if q.index < n_sel else fixed[q.index - n_sel])
+                words = np.zeros((nrow, NUM_WORDS), dtype=np.int32)
+                words[: len(part)] = part
+                static_cols.append((words, rot))
             else:
                 idx = q.index - n_sel - n_fix
                 if idx >= max_width:
@@ -268,9 +269,11 @@ class FoldEvaluator:
 
         # (n_sq, nrow, 8) Montgomery words, pre-rotated
         if static_cols:
-            enc = self.lf.encode([v for col in static_cols for v in col],
-                                 self.device)
-            self.static_stack = enc.reshape(len(static_cols), nrow, NUM_WORDS)
+            self.static_stack = torch.empty(len(static_cols), nrow, NUM_WORDS,
+                                            dtype=torch.int32, device=self.device)
+            for i, (words, rot) in enumerate(static_cols):
+                plain = torch.from_numpy(np.roll(words, -rot, axis=0) if rot else words)
+                self.static_stack[i] = self.lf.from_plain(plain.to(self.device))
         else:
             self.static_stack = torch.zeros(1, nrow, NUM_WORDS,
                                             dtype=torch.int32,

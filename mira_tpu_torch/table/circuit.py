@@ -22,6 +22,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
 from ..polynomial.expression import Expression, Poly, Query
 
 
@@ -196,34 +198,128 @@ class TableData:
         self.copy(cell, Cell(Column("instance", 0), instance_row))
 
     # -- permutation matrix (reference plonk/util.rs:128-174) ----------------
-    def permutation_matrix(self) -> List[Tuple[int, int, int]]:
+    def permutation_matrix(self) -> "PermutationMatrix":
+        """The copy cycles' entries (z_a, z_b, 1) over Z = (io..., advice
+        col 0 rows..., advice col 1 rows..., ...), in the order of
+        `_perm_next`; every other index of Z maps to itself (implied)."""
         num_io = len(self.instance)
         nrow = self.nrow
 
         def z_idx(kind: str, col: int, row: int) -> int:
-            # Z = (io..., advice col 0 rows..., advice col 1 rows..., ...)
-            if kind == "instance":
-                return row
-            if num_io > 0:
-                return num_io + col * nrow + row
-            return col * nrow + row
+            return row if kind == "instance" else num_io + col * nrow + row
 
-        entries = []
-        touched = set()
-        for ka, kb in self._perm_next.items():
-            kind_a, col_a, row_a = ka
-            if kind_a == "instance" and row_a >= num_io:
+        pairs = [(z_idx(*ka), z_idx(*kb)) for ka, kb in self._perm_next.items()
+                 if ka[0] != "instance" or ka[2] < num_io]
+        ij = np.array(pairs, dtype=np.int64).reshape(-1, 2)
+        return PermutationMatrix(ij[:, 0], ij[:, 1], np.ones(len(ij), np.int64),
+                                 num_io + self.cs.num_advice * nrow)
+
+
+class PermutationMatrix:
+    """A sparse permutation matrix over Z of `size` entries: the explicit
+    entries (i, j, v) as int64 arrays, 0 <= i < size, in the order they
+    were made; every index that no explicit entry starts at maps to itself
+    with weight 1.  Iterating gives the entries as mira_tpu's list of tuples
+    holds them (explicit ones, then the implied ones in ascending order),
+    so it compares equal to that list; `json_chunks` gives the text of
+    `json.dumps(sorted(entries))` without building either."""
+
+    def __init__(self, i, j, v, size: int):
+        self.i = np.asarray(i, dtype=np.int64)
+        self.j = np.asarray(j, dtype=np.int64)
+        self.v = np.asarray(v, dtype=np.int64)
+        self.size = int(size)
+        self.touched = np.zeros(self.size, dtype=bool)
+        self.touched[self.i] = True
+
+    def __len__(self):
+        return len(self.i) + int(self.size - self.touched.sum())
+
+    def __iter__(self):
+        yield from zip(self.i.tolist(), self.j.tolist(), self.v.tolist())
+        for k in np.flatnonzero(~self.touched).tolist():
+            yield (k, k, 1)
+
+    def __eq__(self, other):
+        return list(self) == list(other)
+
+    def sorted_chunks(self, chunk: int = 1 << 22):
+        """(i, j, v) arrays of every entry, explicit and implied, in the
+        order of `sorted()` on the tuples, a range of i at a time."""
+        order = np.lexsort((self.v, self.j, self.i))
+        ti, tj, tv = self.i[order], self.j[order], self.v[order]
+        for a in range(0, self.size, chunk):
+            b = min(a + chunk, self.size)
+            ids = np.arange(a, b, dtype=np.int64)
+            ids = ids[~self.touched[ids]]
+            s, e = np.searchsorted(ti, (a, b))
+            i = np.concatenate((ids, ti[s:e]))
+            j = np.concatenate((ids, tj[s:e]))
+            v = np.concatenate((np.ones(len(ids), np.int64), tv[s:e]))
+            o = np.lexsort((v, j, i))
+            yield i[o], j[o], v[o]
+
+    def json_chunks(self, device="cpu", chunk: int = 1 << 22):
+        """The bytes of `json.dumps(sorted(entries))`, in pieces; the text
+        is formatted by tensor ops on `device`."""
+        yield b"["
+        first = True
+        for i, j, v in self.sorted_chunks(chunk):
+            if not len(i):
                 continue
-            entries.append(
-                (z_idx(*ka), z_idx(kb[0], kb[1], kb[2]), 1)
-            )
-            touched.add(z_idx(*ka))
-        # identity rows for untouched entries
-        total = num_io + self.cs.num_advice * nrow
-        for i in range(total):
-            if i not in touched:
-                entries.append((i, i, 1))
-        return entries
+            if not first:
+                yield b", "
+            first = False
+            yield _json_triples(i, j, v, device)
+        yield b"]"
+
+
+_DIGITS4 = np.array([[ord(c) for c in f"{k:04d}"] for k in range(10 ** 4)],
+                    dtype=np.uint8)
+_POW10 = 10 ** np.arange(19, dtype=np.int64)
+
+
+def _json_triples(i, j, v, device="cpu") -> bytes:
+    """b"[i0, j0, v0], [i1, j1, v1], ..." for non-negative int64 arrays (a
+    permutation's indices and weights), as json.dumps
+    writes them: each entry's characters at fixed widths (numbers
+    zero-padded, four digits a table lookup), then the padding dropped by
+    one mask."""
+    import torch
+
+    n = len(i)
+    dev = torch.device(device)
+    table = torch.from_numpy(_DIGITS4).to(dev)
+    pow10 = torch.from_numpy(_POW10).to(dev)
+    parts, keep = [], []
+
+    def text(s: str):
+        c = torch.tensor(list(s.encode()), dtype=torch.uint8, device=dev)
+        parts.append(c.expand(n, len(s)))
+        keep.append(torch.ones(n, len(s), dtype=torch.bool, device=dev))
+
+    def number(a):
+        x = torch.from_numpy(a).to(dev)
+        nd = torch.searchsorted(pow10, x, right=True).clamp_(min=1)
+        groups = (int(nd.max()) + 3) // 4
+        digits = []
+        for _ in range(groups):
+            q = torch.div(x, 10 ** 4, rounding_mode="floor")
+            digits.append(table[x - q * 10 ** 4])
+            x = q
+        parts.append(torch.cat(digits[::-1], dim=1))
+        width = 4 * groups
+        keep.append(torch.arange(width, device=dev)[None, :] >= (width - nd)[:, None])
+
+    text("[")
+    number(i)
+    text(", ")
+    number(j)
+    text(", ")
+    number(v)
+    text("], ")
+    out = torch.cat(parts, dim=1)[torch.cat(keep, dim=1)]
+    return out.cpu().numpy().tobytes()[:-2]
 
 
 class RegionCtx:

@@ -88,11 +88,12 @@ def pack_int_cols(cols: List[List[int]], nrow: int) -> np.ndarray:
     """Python-int columns -> (len(cols) * nrow, 16) uint32 plain 16-bit
     limbs, each column zero-padded to nrow (only nonzero prefixes are
     converted)."""
+    from ..fields.limbs import int_list_words
+
     raw = np.zeros((len(cols) * nrow, NUM_LIMBS), dtype=np.uint32)
     for c, col in enumerate(cols):
         last = _last_nonzero(col)
         if last:
-            buf = b"".join(v.to_bytes(32, "little") for v in col[:last])
-            raw[c * nrow : c * nrow + last] = np.frombuffer(
-                buf, dtype="<u2").reshape(last, NUM_LIMBS)
+            raw[c * nrow : c * nrow + last] = int_list_words(col[:last]).view(
+                "<u2").reshape(last, NUM_LIMBS)
     return raw

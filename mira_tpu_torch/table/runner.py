@@ -161,6 +161,11 @@ class CircuitRunner:
             self._cs, self._synthesized = cs, table
         return self._cs, self._synthesized
 
+    def use_synthesis(self, cs: ConstraintSystem, table: TableData):
+        """Take (cs, table) of a synthesis made elsewhere (a capture of the
+        same circuit, ivc/tape_runner.py) as this runner's own."""
+        self._cs, self._synthesized = cs, table
+
     def collect_structure(self) -> PlonkStructure:
         cs, table = self._synthesize()
         (num_challenges, round_sizes, gates, compressed, lookup_arguments) = (

@@ -139,85 +139,114 @@ def tape_vm_available() -> bool:
     return load_tape_vm() is not None
 
 
+def _reuse_registers(a_src, b_src):
+    """Liveness renaming of the op outputs, in numpy passes: the registers
+    mira_tpu's renaming loop assigns, register for register.
+
+    `a_src` / `b_src` give, for each op, the op whose output is its operand
+    a / b (-1 for a static slot).  That loop walks the ops with a free list
+    (a stack): at op i it pushes the registers of operands whose last use
+    is i (a's, then b's; the op computes into a temporary, so its output may
+    take one of them), pops one for the output or, with the list empty,
+    opens a new register, and pushes the output's register back at once
+    when nothing reads it.  Here each op i has four event slots (a dies, b
+    dies, the output is assigned, the output dies unread), so the events'
+    order is that of their keys.  An assignment opens a register exactly
+    when the live values then outnumber every earlier count; every other
+    assignment pops, and a pop takes the register of the latest push not
+    yet popped, found as brackets are matched: by a stable sort of pushes
+    and pops on the stack depth they reach.  Each output then inherits the
+    register of the value whose push it popped, resolved by pointer
+    jumping.  Returns (each op output's register counted from 0, the number
+    of registers)."""
+    import numpy as np
+
+    n = len(a_src)
+    idx = np.arange(n, dtype=np.int64)
+    last = np.full(n, -1, np.int64)
+    for src in (a_src, b_src):
+        dyn = src >= 0
+        np.maximum.at(last, src[dyn], idx[dyn])
+    used = last >= 0
+    lu = np.where(used, last, 0)
+    end_key = np.where(used, 4 * lu + (a_src[lu] != idx), 4 * idx + 3)
+    start_key = 4 * idx + 2
+    # live values just after each assignment, and whether it opens a register
+    live = idx + 1 - np.searchsorted(np.sort(end_key), start_key)
+    opened = live > np.maximum.accumulate(np.concatenate(([0], live[:-1])))
+    # pushes (every value's death) and pops (the other assignments) in order
+    keys = np.concatenate((end_key, start_key[~opened]))
+    value = np.concatenate((idx, idx[~opened]))
+    push = np.concatenate((np.ones(n, bool), np.zeros(n - opened.sum(), bool)))
+    order = np.argsort(keys)  # the keys are distinct
+    value, push = value[order], push[order]
+    depth = np.cumsum(np.where(push, 1, -1))
+    # by depth, and in time order within a depth (a distinct key again)
+    by_depth = np.argsort(np.where(push, depth, depth + 1) * len(push)
+                          + np.arange(len(push)))
+    pops = np.flatnonzero(~push[by_depth])
+    parent = idx.copy()
+    parent[value[by_depth[pops]]] = value[by_depth[pops - 1]]
+    while True:
+        up = parent[parent]
+        if np.array_equal(up, parent):
+            break
+        parent = up
+    rank = np.cumsum(opened) - 1
+    return rank[parent], int(opened.sum())
+
+
 def _tape_prepare(tape):
     """One-time per tape: liveness-based register renaming + static
-    marshaling.  Cached on the tape object."""
+    marshaling, in numpy passes.  Cached on the tape object.
+
+    The static slots (inputs and constants) are pinned to registers
+    [0, n_static); the op outputs take the registers mira_tpu's renaming
+    loop gives them (`_reuse_registers`), so the VM's register file holds
+    only the values live at once."""
     import numpy as np
 
     n_ops = len(tape.op_code)
     n_slots = len(tape.slots)
-    op_of_slot = [-1] * n_slots
-    for i, s in enumerate(tape.op_out):
-        op_of_slot[s] = i
+    code = np.asarray(tape.op_code, np.int32)
+    op_out = np.asarray(tape.op_out, np.int64)
+    op_of_slot = np.full(n_slots, -1, np.int64)
+    op_of_slot[op_out] = np.arange(n_ops)
 
-    # static slots (inputs + consts) pinned to registers [0, n_static)
-    static_slots = [s for s in range(n_slots) if op_of_slot[s] < 0]
+    static_slots = np.flatnonzero(op_of_slot < 0)
     n_static = len(static_slots)
-    reg_of = [-1] * n_slots
-    for r, s in enumerate(static_slots):
-        reg_of[s] = r
-
-    last_use = [-1] * n_slots
-    for i in range(n_ops):
-        last_use[tape.op_a[i]] = i
-        last_use[tape.op_b[i]] = i
+    op_a = np.asarray(tape.op_a, np.int64)
+    op_b = np.asarray(tape.op_b, np.int64)
+    out_regs, n_dyn = _reuse_registers(op_of_slot[op_a], op_of_slot[op_b])
+    reg_of = np.empty(n_slots, np.int64)
+    reg_of[static_slots] = np.arange(n_static)
+    reg_of[op_out] = n_static + out_regs
+    n_regs = n_static + n_dyn
+    if n_regs >= 1 << 31:
+        raise ValueError(f"tape of {n_regs} registers: past the VM's int32 indices")
 
     # the VM caches Barrett contexts keyed by divisor REGISTER; that is only
     # sound when every divisor is a pinned static register (const/input)
-    for i, c in enumerate(tape.op_code):
-        if c in (3, 4, 5, 6):  # MOD, DIV, INVMOD, ISZM
-            assert op_of_slot[tape.op_b[i]] < 0, (
-                "dynamic divisor breaks the native VM's Barrett cache"
-            )
+    divides = np.isin(code, (3, 4, 5, 6))  # MOD, DIV, INVMOD, ISZM
+    assert (op_of_slot[op_b[divides]] < 0).all(), (
+        "dynamic divisor breaks the native VM's Barrett cache"
+    )
+    a_reg = reg_of[op_a].astype(np.int32)
+    b_reg = reg_of[op_b].astype(np.int32)
+    out_reg = reg_of[op_out].astype(np.int32)
 
-    a_reg = np.empty(n_ops, np.int32)
-    b_reg = np.empty(n_ops, np.int32)
-    out_reg = np.empty(n_ops, np.int32)
-    free: list = []
-    n_regs = n_static
-    OUT, A, B = tape.op_out, tape.op_a, tape.op_b
-    for i in range(n_ops):
-        sa, sb, so = A[i], B[i], OUT[i]
-        a_reg[i] = reg_of[sa]
-        b_reg[i] = reg_of[sb]
-        # free dying operand registers (op computes into a temp, so the out
-        # register may alias an operand)
-        if op_of_slot[sa] >= 0 and last_use[sa] == i:
-            free.append(reg_of[sa])
-        if op_of_slot[sb] >= 0 and last_use[sb] == i and sb != sa:
-            free.append(reg_of[sb])
-        if free:
-            r = free.pop()
-        else:
-            r = n_regs
-            n_regs += 1
-        reg_of[so] = r
-        out_reg[i] = r
-        if last_use[so] < 0:  # emitted only (or dead): free immediately
-            free.append(r)
-
-    # emit table: writes whose source slot is an op output
-    emits_per_op: dict = {}
-    dyn_writes = []  # indices into tape.writes
-    static_input_writes = []  # (write_idx, slot) with slot an input
-    for w_idx, (_c, _r, slot) in enumerate(tape.writes):
-        op_i = op_of_slot[slot]
-        if op_i >= 0:
-            emits_per_op.setdefault(op_i, []).append(len(dyn_writes))
-            dyn_writes.append(w_idx)
-        elif slot < tape.num_inputs:
-            static_input_writes.append((w_idx, slot))
-        # const-sourced writes are already in the advice template
-
+    # emit table: writes whose source slot is an op output, grouped by op
+    # in op order (each op's in write order)
+    slots_w = np.fromiter((w[2] for w in tape.writes), np.int64, len(tape.writes))
+    op_w = op_of_slot[slots_w]
+    dyn_writes = np.flatnonzero(op_w >= 0)
+    emit_dst = np.argsort(op_w[dyn_writes], kind="stable").astype(np.int32)
     emit_start = np.zeros(n_ops + 1, np.int32)
-    emit_dst = np.empty(len(dyn_writes), np.int32)
-    pos = 0
-    for i in range(n_ops):
-        emit_start[i] = pos
-        for d in emits_per_op.get(i, ()):
-            emit_dst[pos] = d
-            pos += 1
-    emit_start[n_ops] = pos
+    emit_start[1:] = np.cumsum(np.bincount(op_w[dyn_writes], minlength=n_ops))
+    # const-sourced writes are already in the advice template
+    inputs_w = np.flatnonzero((op_w < 0) & (slots_w < tape.num_inputs))
+    static_input_writes = list(zip(inputs_w.tolist(), slots_w[inputs_w].tolist()))
+    static_slots = static_slots.tolist()
 
     # static register values: consts marshaled once; inputs patched per run
     static_mag = np.zeros((n_static, _W), np.uint64)

@@ -1,10 +1,15 @@
-"""Merkle-tree-update step circuit (port of mira_tpu/workloads/merkle.py):
-the same circuit over the port's copy of the gadgets, with the main-gate
-width taken from the port's step-folding circuit.  The step circuit of
-SnarkStar's primary side (workloads/snarkstar.py)."""
+"""Merkle-tree-update step circuit and IVC workload (port of
+mira_tpu/workloads/merkle.py): the same circuit over the port's copy of the
+gadgets, with the main-gate width taken from the port's step-folding
+circuit.  The step circuit of SnarkStar's and TensorStar's primary side
+(workloads/snarkstar.py, workloads/tensorstar.py).
+
+    python -m mira_tpu_torch.workloads.merkle --steps 2 --k 17 --device cuda
+"""
 
 from __future__ import annotations
 
+import random
 from collections import deque
 from typing import Deque, List
 
@@ -140,3 +145,63 @@ class _TapedMerkleView(StepCircuit):
             ctx.constrain_equal(prev.cell, update.old.cell)
             prev = update.new
         return [prev]
+
+
+def run(steps: int = 2, k: int = 17, use_mock_ck: bool = True, batch_size: int = 1,
+        device="cuda"):
+    """Fold `steps` Merkle-update steps on `device` and verify (strict);
+    returns the verified IVC (port of mira_tpu/workloads/merkle.py `run`)."""
+    from ..curves.host import BN254_G1, GRUMPKIN
+    from ..ivc.ivc import IVC
+    from ..ivc.public_params import CircuitSide, PublicParams
+    from ..ivc.step_circuit import TrivialCircuit
+    from ..ops.commitment import CommitmentKey
+    from ..ops.mock_commitment import MockCommitmentKey
+
+    rng = random.Random(0)
+    p_mod = BN254_G1.scalar_modulus
+
+    sc1 = MerkleTreeUpdateCircuit(p_mod, batch_size)
+    for _ in range(steps + 2):
+        sc1.random_update_leaves(rng)
+    sc2 = TrivialCircuit(arity=1)
+
+    ck_k = k + 4
+    if use_mock_ck:
+        ck1 = MockCommitmentKey(BN254_G1, ck_k, b"bn256", device)
+        ck2 = MockCommitmentKey(GRUMPKIN, ck_k, b"grumpkin", device)
+    else:
+        ck1 = CommitmentKey.load_or_setup_cache(BN254_G1, ck_k, "bn256",
+                                                device=device)
+        ck2 = CommitmentKey.load_or_setup_cache(GRUMPKIN, ck_k, "grumpkin",
+                                                device=device)
+
+    pp = PublicParams(
+        CircuitSide(sc1, ck1, k), CircuitSide(sc2, ck2, k), BN254_G1, GRUMPKIN
+    )
+    # NOTE: pp construction + IVC.new consume the first batch (zero step)
+    z0 = [sc1.front_proof_batch()[0].root().old]
+    ivc = IVC(pp, sc1, z0, sc2, [0])
+    import time
+
+    for step in range(steps):
+        sc1.pop_front_proof_batch()
+        t0 = time.time()
+        ivc.fold_step()
+        print(f"fold step {step + 1}: {time.time() - t0:.1f}s")
+    ivc.verify(strict=True)
+    print(f"merkle IVC: {steps} steps verified OK; root = {ivc.primary.z_i[0]}")
+    return ivc
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--k", type=int, default=17)
+    ap.add_argument("--batch-size", type=int, default=1)
+    ap.add_argument("--real-ck", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda or cpu")
+    args = ap.parse_args()
+    run(args.steps, args.k, not args.real_ck, args.batch_size, args.device)

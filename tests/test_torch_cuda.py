@@ -775,3 +775,56 @@ def test_window_kernel_rejects_jacobian_bases(cuda_device):  # noqa: F811
     s = encode_scalars(sc, BN254_G1.scalar_modulus, cuda_device)
     with pytest.raises(ValueError):
         cuda_msm.msm_lane_cuda(s, (X, Y, Z), BN254_G1, 4)
+
+
+def test_tensorstar_mock_key_commit_on_the_card_equals_the_cpu(cuda_device):  # noqa: F811
+    """TensorStar's mock key (2^26 weights, workloads/tensorstar.py) commits
+    a witness on the card to the point the same key commits it to on the
+    CPU, and to its Python-int inner product."""
+    from mira_tpu_torch.ops.mock_commitment import MockCommitmentKey
+
+    rng = np.random.default_rng(26)
+    w = rng.integers(0, 1 << 32, size=(1 << 20, 8), dtype=np.uint64).astype(np.uint32)
+    w[:, 7] &= 0x1FFFFFFF
+    lf = limb_field(BN254_G1.scalar_modulus)
+    mont = lf.from_plain(torch.from_numpy(w.view(np.int32)))
+    card = MockCommitmentKey(BN254_G1, 26, b"bn256", cuda_device)
+    cpu = MockCommitmentKey(BN254_G1, 26, b"bn256", "cpu")
+    got = card.commit_device(mont.to(cuda_device))
+    assert got == cpu.commit_device(mont)
+    vals = lf.decode(mont[:4096])
+    assert card.commit_device(mont[:4096].to(cuda_device)) == cpu.commit_ints(vals)
+
+
+def test_checkpoint_round_trip_of_a_cuda_ivc(tmp_path, cuda_device):  # noqa: F811
+    """A k=17 trivial IVC on the card (mock keys) saved and resumed onto the
+    card: the resumed IVC's state equals the saved one's, its witnesses live
+    on the card, it folds one more step to the uninterrupted IVC's
+    accumulators and passes verify(strict=True)."""
+    from mira_tpu_torch.ivc.ivc import IVC
+    from mira_tpu_torch.ivc.public_params import CircuitSide, PublicParams
+    from mira_tpu_torch.ivc.step_circuit import TrivialCircuit
+    from mira_tpu_torch.ops.mock_commitment import MockCommitmentKey
+
+    pp = PublicParams(
+        CircuitSide(TrivialCircuit(arity=1),
+                    MockCommitmentKey(BN254_G1, 21, b"bn256", cuda_device), 17),
+        CircuitSide(TrivialCircuit(arity=1),
+                    MockCommitmentKey(GRUMPKIN, 21, b"grumpkin", cuda_device), 17),
+        BN254_G1, GRUMPKIN)
+    ivc = IVC(pp, TrivialCircuit(arity=1), [11], TrivialCircuit(arity=1), [22])
+    ivc.fold_step()
+    path = str(tmp_path / "cuda.npz")
+    ivc.save_checkpoint(path)
+    resumed = IVC.resume(pp, TrivialCircuit(arity=1), TrivialCircuit(arity=1), path)
+    for a, b in ((ivc.primary, resumed.primary), (ivc.secondary, resumed.secondary)):
+        assert a.relaxed_trace.U == b.relaxed_trace.U
+        assert b.relaxed_trace.W.E.device.type == "cuda"
+        assert all(torch.equal(x, y) for x, y in
+                   zip(a.relaxed_trace.W.W, b.relaxed_trace.W.W))
+    ivc.fold_step()
+    resumed.fold_step()
+    for a, b in ((ivc.primary, resumed.primary), (ivc.secondary, resumed.secondary)):
+        assert a.relaxed_trace.U == b.relaxed_trace.U
+        assert torch.equal(a.relaxed_trace.W.E, b.relaxed_trace.W.E)
+    resumed.verify(strict=True)

@@ -99,4 +99,6 @@ def test_tape_replay_matches_fresh_synthesis(pp, monkeypatch):
     ivc = IVC(pp, TrivialCircuit(arity=1), [11], TrivialCircuit(arity=1), [22])
     ivc.fold_step()
     ivc.verify(strict=True)
-    assert sorted(checked) == ["primary", "secondary"]
+    # the public parameters capture both sides' tapes, so the zero step
+    # replays them too
+    assert sorted(checked) == ["primary", "primary", "secondary", "secondary"]

@@ -1,7 +1,8 @@
 """The port imports neither jax nor mira_tpu: every mira_tpu_torch module
 imports, and a tiny SPS trace + commitment + is_sat + fold evaluation, a
-commitment through a multiples table, a Groth16 prove/verify and a NIFS fold
-step (and, on a mesh of one, a sharded commit and fold step) run, in a
+commitment through a multiples table, a Groth16 prove/verify, a NIFS fold
+step (and, on a mesh of one, a sharded commit and fold step), an IVC
+checkpoint saved and resumed and a KZG commitment and opening run, in a
 process where importing jax or mira_tpu raises, and in a plain
 process both stay unloaded; and no import statement in the port's sources or
 in chip_smoke.py, inside functions included, names jax or mira_tpu."""
@@ -97,6 +98,32 @@ mesh.close()
 r1cs, z = groth16.benchmark_r1cs(4)
 pk = groth16.setup(r1cs, random.Random(0))
 assert groth16.verify(pk.vk, groth16.prove(pk, r1cs, z, random.Random(1)), z[1:3])
+
+# an IVC checkpoint of the folded state saved and resumed (ivc/checkpoint.py)
+import os, tempfile
+from types import SimpleNamespace as ns
+from mira_tpu_torch.ivc import checkpoint
+from mira_tpu_torch.ivc.ivc import IVC
+from mira_tpu_torch.ops.poseidon import get_spec
+
+side = ns(S=S, ck=ck, params=ns(ro_spec=get_spec(BN254_FQ, 5, 4, 10, 10)))
+g = AffinePoint.generator(BN254_G1)
+pp_ns = ns(primary_curve=BN254_G1, secondary_curve=BN254_G1, primary=side,
+           secondary=side, digest_1=g, digest_2=g, tapes={})
+state = ns(pp=pp_ns, step=2, primary=ns(relaxed_trace=folded, z_0=[1], z_i=[2]),
+           secondary=ns(relaxed_trace=acc, z_0=[3], z_i=[4]), secondary_trace=trace)
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save(state, os.path.join(d, "c.npz"))
+    back = IVC.resume(pp_ns, None, None, os.path.join(d, "c.npz"))
+assert back.step == 2 and back.primary.relaxed_trace.U == folded.U
+assert back.secondary_trace.u == trace.u
+
+# a KZG commitment, opening and pairing check (pcs/kzg.py)
+from mira_tpu_torch.pcs import kzg
+
+srs = kzg.KzgSrs.setup(4)
+assert kzg.kzg_verify(srs, kzg.kzg_commit(srs, [1, 2, 3]), 5,
+                      *kzg.kzg_open(srs, [1, 2, 3], 5))
 print("JAX_LOADED", "jax" in sys.modules)
 print("MIRA_LOADED", "mira_tpu" in sys.modules)
 """
