@@ -84,6 +84,14 @@ generic-base MSM engines (kernels 4-7):
 - the k=17 path's decider, verify(strict=True), once per engine of
   kernels 5-7 (CommitmentKey.generic_method), so that each engine's kernel,
   and no other MSM kernel, makes the decider's commitments;
+- the audit of the k=17 accumulators: verify(strict=True) with the
+  decider's gate evaluation on each MIRA_FOLD_EVAL route (the fold
+  evaluator kernel, the native row VM on the host, the column evaluator),
+  each of which must accept them and, with one word of the primary error
+  vector changed, refuse them at that evaluation; a MIRA_DEBUG_SAT fold of
+  a trace whose first advice column holds random values, which the guard
+  must refuse; and one more fold step under MIRA_TRACE=json and
+  MIRA_SYNC_SPANS=1, whose span lines must parse, one a span;
 - the mesh path: a second IVC of the k=17 path's public parameters runs two
   fold_step(mesh=...) on a mesh of one (NCCL, world 1), every commit a
   sharded MSM through kernel 4 and the cross terms of the rank's row range
@@ -2237,6 +2245,148 @@ def same_accumulators(a, b) -> bool:
                for (Ua, Wa, Ea), (Ub, Wb, Eb) in zip(a, b))
 
 
+AUDIT_ROUTES = ("pallas", "native", "xla")  # MIRA_FOLD_EVAL's values
+# the spans that end in a synchronize under MIRA_SYNC_SPANS=1
+FENCED_SPANS = ("delta_scalars", "delta_msm", "delta_decode", "vals_to_mont",
+                "witness_scatter")
+
+
+@contextlib.contextmanager
+def env_set(name: str, value):
+    """The environment variable `name` set to `value` (unset for None) inside
+    the block, and restored after it."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def run_audit(torch, ivc, rng) -> dict:
+    """The k=17 IVC's accumulators audited by the decider's other routes and
+    the MIRA_DEBUG_SAT guard, then one fold step under MIRA_TRACE=json.
+
+    - verify(strict=True) with MIRA_FOLD_EVAL set to each of AUDIT_ROUTES:
+      each must accept; the fold evaluator kernel must launch on "pallas"
+      alone (the native row VM runs on the host, the column evaluator as
+      plain torch ops);
+    - the same with one word of the primary error vector E changed: each
+      route must refuse at the gate evaluation, on exactly that row;
+    - one secondary-side prove under MIRA_DEBUG_SAT=1 of the fresh trace
+      with random values in its first advice column: the guard must raise
+      its "assume_sat contract violated" ValueError before any commit;
+    - one fold step under MIRA_TRACE=json and MIRA_SYNC_SPANS=1: one
+      parsable line with mira_tpu's keys per span of the step; the fenced
+      spans' seconds are logged.
+
+    Returns {phase: seconds}; raises on any failure."""
+    from io import StringIO
+
+    from mira_tpu_torch.ivc.ivc import VerificationError
+    from mira_tpu_torch.nifs.vanilla import VanillaFS
+    from mira_tpu_torch.plonk.structure import PlonkTrace, PlonkWitness
+    from mira_tpu_torch.utils import tracing
+
+    secs = {}
+    for route in AUDIT_ROUTES:
+        with env_set("MIRA_FOLD_EVAL", route):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            ivc.verify(strict=True)
+            torch.cuda.synchronize()
+            secs[f"verify_{route}"] = time.perf_counter() - t0
+            launched = launch_counts()["fold_eval"]
+        if (launched > 0) != (route == "pallas"):
+            raise AssertionError(f"the decider on route {route} launched the fold "
+                                 f"evaluator kernel {launched} times")
+        log(f"audit: verify(strict=True) with MIRA_FOLD_EVAL={route} accepted in "
+            f"{secs[f'verify_{route}']:.3f} s (fold_eval launches {launched})")
+
+    W = ivc.primary.relaxed_trace.W
+    E = W.E
+    lf = W.lf
+    row = int(rng.integers(E.shape[0]))
+    bad = E.clone()
+    bad[row] = lf.encode([(lf.decode(E[row : row + 1])[0] + 1) % lf.modulus],
+                         E.device)[0]
+    W.E = bad
+    try:
+        for route in AUDIT_ROUTES:
+            with env_set("MIRA_FOLD_EVAL", route):
+                t0 = time.perf_counter()
+                try:
+                    ivc.verify(strict=True)
+                except VerificationError as e:
+                    want = ("primary relaxed sat: relaxed gate evaluation != E "
+                            f"on 1/{E.shape[0]} rows")
+                    if want not in str(e):
+                        raise AssertionError(f"route {route}: {e}") from e
+                else:
+                    raise AssertionError(f"route {route} accepted an accumulator "
+                                         f"whose E differs at row {row}")
+                secs[f"refuse_{route}"] = time.perf_counter() - t0
+            log(f"audit: E changed at row {row}: MIRA_FOLD_EVAL={route} refused it "
+                f"in {secs[f'refuse_{route}']:.3f} s")
+    finally:
+        W.E = E
+
+    pp = ivc.pp
+    S2 = pp.secondary.S
+    trace = ivc.secondary_trace
+    w0 = trace.w.W[0].clone()
+    nrow = 1 << S2.k
+    w0[:nrow] = S2.lf.encode(
+        [int(v) % S2.modulus for v in rng.integers(0, 1 << 62, size=nrow)],
+        w0.device)
+    bad_trace = PlonkTrace(trace.u, PlonkWitness(trace.w.lf, [w0] + trace.w.W[1:]))
+    with env_set("MIRA_DEBUG_SAT", "1"):
+        t0 = time.perf_counter()
+        try:
+            VanillaFS.prove(pp.secondary.ck, ivc.secondary_nifs_pp, ivc._primary_ro(),
+                            ivc.secondary.relaxed_trace, bad_trace)
+        except ValueError as e:
+            if "assume_sat contract violated" not in str(e):
+                raise
+            log(f"audit: MIRA_DEBUG_SAT refused the tampered trace: {e}")
+        else:
+            raise AssertionError("MIRA_DEBUG_SAT folded a tampered trace")
+        secs["guard"] = time.perf_counter() - t0
+    del bad_trace, w0, bad
+
+    err = StringIO()
+    tracing.reset()
+    with env_set("MIRA_TRACE", "json"), env_set("MIRA_SYNC_SPANS", "1"), \
+            contextlib.redirect_stderr(err):
+        t0 = time.perf_counter()
+        ivc.fold_step()
+        torch.cuda.synchronize()
+        secs["json_step"] = time.perf_counter() - t0
+    n_spans = sum(c for c, _ in tracing.totals().values())
+    lines = [json.loads(line) for line in err.getvalue().splitlines()
+             if line.startswith('{"span"')]
+    keys = {"span", "enter", "close", "busy_s", "total_s"}
+    if len(lines) != n_spans or any(set(r) != keys for r in lines):
+        raise AssertionError(f"MIRA_TRACE=json: {len(lines)} span lines for "
+                             f"{n_spans} spans of the step")
+    log(f"audit: a fold step under MIRA_TRACE=json in {secs['json_step']:.3f} s: "
+        f"{len(lines)} span lines, each with the keys {sorted(keys)}")
+    fenced = {}
+    for r in lines:
+        if r["span"] in FENCED_SPANS:
+            fenced.setdefault(r["span"], []).append(r["total_s"])
+    log("audit: that step's fenced spans (MIRA_SYNC_SPANS=1: each ends in a "
+        f"synchronize), seconds each: {json.dumps(fenced)}")
+    tracing.reset()
+    return secs
+
+
 def run_mesh_path(torch, dev, pp, sc1, sc2, single, profile_dir=None):
     """A second IVC of the k=17 path's public parameters folded MESH_STEPS
     times with fold_step(mesh=...) on a mesh of one; after each step its
@@ -2523,6 +2673,11 @@ def _paths(args, torch, dev, rng, card, prev, t_all, ts_pool, ts_job, t_ts,
     log("host span tree of the fold steps (work queued on the card is "
         "charged to the span that waits for it):")
     log(tracing.report(min_runtime=0.01))
+    log("the same spans by name (count, busy and total seconds), largest busy "
+        "first:")
+    log(tracing.aggregate(0.01))
+    log("memory after the fold steps:")
+    log(tracing.memory_report())
     log(f"peak device memory over the fold steps: {peak / 2**30:.3f} GiB")
     log(f"tables (lanes, window): {ck1.table_shapes()} / {ck2.table_shapes()}, "
         f"not fitting {ck1.fb_skipped + ck2.fb_skipped}")
@@ -2676,6 +2831,12 @@ def _paths(args, torch, dev, rng, card, prev, t_all, ts_pool, ts_job, t_ts,
     t0 = time.perf_counter()
     deciders = run_engine_deciders(torch, ivc)
     phase("msm_engine_deciders", t0)
+    # the audit after every kernel timing of this process (the native row VM
+    # takes every host core)
+    t0 = time.perf_counter()
+    audit_secs = run_audit(torch, ivc, rng)
+    log(f"audit (s): {json.dumps(audit_secs)}")
+    phase("audit", t0)
     t0 = time.perf_counter()
     mesh_secs, mesh_counts, mesh_peak, mesh_verify = run_mesh_path(
         torch, dev, pp, sc1, sc2, single, args.profile)

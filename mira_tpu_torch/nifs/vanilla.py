@@ -5,7 +5,11 @@ Cross terms: the homogeneous polynomial is evaluated at the interior fold
 points j = 1..d-1 by the fold evaluator (the kernel on the card) and the
 degree slices are recovered with the inverse Vandermonde, using the two
 satisfaction invariants (Q(0) = E, leading coefficient 0) as mira_tpu does;
-the combine runs as elementwise field ops on the witness device.  The Gt
+the combine runs as elementwise field ops on the witness device.
+MIRA_FOLD_EVAL (or `_impl`) picks mira_tpu's other evaluators instead:
+"native", the native row VM and its combine on the host's cores, or "xla",
+the column evaluator.  With MIRA_DEBUG_SAT set, a prove first checks the
+two invariants and raises ValueError where a trace breaks them.  The Gt
 cross terms are the real pairing cross terms of the structure's Groth16
 context where one is attached, else the reference's seeded random
 Tuple12s, drawn from `rng` in mira_tpu's order.
@@ -22,12 +26,17 @@ card) takes the block as a row range, all fold points in one call.
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
 from functools import lru_cache
 from typing import List, Tuple
 
+import numpy as np
+import torch
+
 from ..curves.host import AffinePoint, Tuple12
 from ..fields.host import field
+from ..fields.native64 import lincomb_mont
 
 from ..plonk.structure import (
     NUM_CHALLENGE_BITS,
@@ -38,8 +47,10 @@ from ..plonk.structure import (
     RelaxedPlonkInstance,
     RelaxedPlonkTrace,
     RelaxedPlonkWitness,
+    fold_eval_impl,
     sps_verify,
 )
+from ..polynomial.native_evaluator import words_from_64, words_to_64
 from ..utils.tracing import instrument, span
 
 
@@ -112,6 +123,56 @@ def combine_slices(lf, evals):
     return outs
 
 
+def combine_slices_native(p: int, d: int, outs64, E, assume_sat: bool):
+    """The two combines above on the host's cores, as mira_tpu's native route
+    computes them: one `native64.lincomb_mont` over the native VM's (n_j,
+    n, 4) uint64 evaluations (and E, whose coefficient -sum_j invM[k][j]
+    folds the subtraction in when `assume_sat`).  Returns the port's words
+    on E's device."""
+    if assume_sat and d >= 1:
+        invM = _inv_vandermonde_inner(p, d)
+        ins = np.concatenate([outs64, words_to_64(E)[None]], axis=0)
+        coefs = [list(invM[k]) + [(-sum(invM[k])) % p] for k in range(d - 1)]
+        T64 = lincomb_mont(p, ins, coefs)
+        return ([words_from_64(t, E.device) for t in T64]
+                + [torch.zeros_like(E)])  # T_d = 0 when sat
+    invV = _inv_vandermonde(p, d)
+    T64 = lincomb_mont(p, outs64, [list(invV[k]) for k in range(1, d + 1)])
+    return [words_from_64(t, E.device) for t in T64]
+
+
+def _debug_check_assume_sat(S: PlonkStructure, W1, W2, ch1, ch2):
+    """MIRA_DEBUG_SAT guard for the `assume_sat` cross-term shortcut (port of
+    mira_tpu's).
+
+    The shortcut trusts two invariants without checking them: Q(0) equals
+    the accumulator's stored error vector E (is_sat_relaxed invariant) and
+    the leading coefficient of Q, the homogeneous polynomial evaluated on
+    the fresh trace alone, vanishes (is_sat invariant).  Folding a trace
+    that violates either silently produces wrong cross terms, detectable
+    only by a later strict verify; with MIRA_DEBUG_SAT=1 this re-evaluates
+    both on the fold evaluator at j = 0 (two extra passes) and fails loudly
+    at prove time."""
+    ev = S.fold_evaluator(W1.E.device)
+
+    def eval_on(Ws, ch):
+        return ev.fold_eval_multi(Ws, Ws, [0], ch, [0] * len(ch))[0]
+
+    bad = int((eval_on(W1.W, ch1) != W1.E).any(-1).sum())
+    if bad:
+        raise ValueError(
+            "MIRA_DEBUG_SAT: assume_sat contract violated — the accumulator "
+            f"does not satisfy its relaxed relation (Q(0) != E on {bad} rows). "
+            "Pass assume_sat=False to commit_cross_terms, or fix the trace.")
+    bad = int((eval_on(W2.W, ch2) != 0).any(-1).sum())
+    if bad:
+        raise ValueError(
+            "MIRA_DEBUG_SAT: assume_sat contract violated — the incoming "
+            f"trace does not satisfy its relation (leading coefficient "
+            f"nonzero on {bad} rows). Pass assume_sat=False to "
+            "commit_cross_terms, or fix the trace.")
+
+
 @dataclasses.dataclass
 class VanillaFSProverParam:
     S: PlonkStructure
@@ -126,31 +187,53 @@ class VanillaFS:
     def commit_cross_terms(ck, S: PlonkStructure, U1: RelaxedPlonkInstance,
                            W1: RelaxedPlonkWitness, U2: PlonkInstance,
                            W2: PlonkWitness, rng=None, assume_sat: bool = True,
-                           mesh=None):
+                           mesh=None, _impl=None):
+        """The cross terms and their commitments.  The gate evaluator is
+        `fold_eval_impl(_impl)` (MIRA_FOLD_EVAL): the fold evaluator by
+        default, the native row VM with its combine on the host, or the
+        column evaluator one point at a time.  With a mesh each route gives
+        the rank's block of rows: the fold evaluator and the native VM
+        evaluate that block alone, the column evaluator whole columns."""
         rng = rng or random.Random(0xC405)
         p = S.modulus
         lf = S.lf
         d = S.get_degree_for_folding() - 1  # max degree of the homogeneous poly
+        impl = fold_eval_impl(_impl)
 
         ch1 = list(U1.challenges) + [U1.u]
         ch2 = list(U2.challenges) + [1]  # fresh instance folds with u = 1
+
+        if assume_sat and d >= 1 and os.environ.get("MIRA_DEBUG_SAT"):
+            _debug_check_assume_sat(S, W1, W2, ch1, ch2)
 
         if assume_sat and d >= 1:
             js = list(range(1, d))
         else:
             js = list(range(d + 1))
         nrow = W1.E.shape[0]
+        dev = W1.E.device
         lo, hi = (0, nrow) if mesh is None else mesh.rows(nrow)
+        native = impl == "native" and js
+        evals = []
         if js:
-            ev = S.fold_evaluator(W1.E.device)
             with span("cross_term_eval"):
-                outs = ev.fold_eval_multi(W1.W, W2.W, js, ch1, ch2,
-                                          rows=(lo, hi))
-            evals = [outs[i] for i in range(len(js))]
-        else:
-            evals = []
+                if native:
+                    outs64 = S._native_fold_evaluator().fold_eval_multi(
+                        W1.W, W2.W, js, ch1, ch2, rows=(lo, hi), as64=True)
+                elif impl == "xla":
+                    ev = S._evaluator("homogeneous", dev)
+                    evals = [ev.fold_eval(W1.W, W2.W, j, [
+                        (a + j * b) % p for a, b in zip(ch1, ch2)])[lo:hi]
+                        for j in js]
+                else:
+                    outs = S.fold_evaluator(dev).fold_eval_multi(
+                        W1.W, W2.W, js, ch1, ch2, rows=(lo, hi))
+                    evals = [outs[i] for i in range(len(js))]
         with span("cross_term_combine"):
-            if assume_sat and d >= 1:
+            if native:
+                cross_terms = combine_slices_native(p, d, outs64, W1.E[lo:hi],
+                                                    assume_sat)
+            elif assume_sat and d >= 1:
                 cross_terms = combine_slices_sat(lf, evals, W1.E[lo:hi])
             else:
                 cross_terms = combine_slices(lf, evals)

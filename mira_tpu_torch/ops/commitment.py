@@ -44,7 +44,7 @@ from ..fields.host import field
 
 from ..curves.torch_curve import jacobian_ops
 from ..fields.limbs import ints_to_limbs, limb_field, limbs_to_ints
-from ..utils.tracing import span
+from ..utils.tracing import fence, span
 from .cuda_msm import fixed_table, msm_fixed
 from .msm import METHODS, encode_scalars, fixed_base_window, msm
 
@@ -399,16 +399,19 @@ class CommitmentKey:
             self._delta_cache[token] = entry
         C_t, table, gpts = entry
         with span("delta_scalars"):
-            delta = lf.to_plain(dw.delta_mont())
+            delta = fence(lf.to_plain(dw.delta_mont()))
         with span("delta_msm"):
             if table is not None:
                 out = msm_fixed(delta, table, self.curve, DELTA_WINDOW)
             else:
                 out = self._msm_generic(delta, gpts)
+            fence(out)
 
         def _materialize():
             with span("delta_decode"):
-                return C_t.add(self._decode(out))
+                pt = C_t.add(self._decode(out))
+                fence(out)
+                return pt
 
         return LazyPoint(self.curve, _materialize)
 

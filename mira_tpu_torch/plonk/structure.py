@@ -17,6 +17,7 @@ row sharding).
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
 from typing import List, Optional, Tuple
 
@@ -102,6 +103,21 @@ def encode_padded(lf, cols, nrow: int, device) -> torch.Tensor:
             out[i * nrow : i * nrow + last] = enc[off : off + last]
             off += last
     return out
+
+
+FOLD_EVALS = ("pallas", "native", "xla")
+
+
+def fold_eval_impl(impl: Optional[str] = None) -> str:
+    """The gate evaluator of the cross terms and the decider: `impl`, else
+    the MIRA_FOLD_EVAL knob, else "pallas".  mira_tpu's names: "pallas" is
+    the fold evaluator (kernel 2 on the card, its plain version on the
+    CPU), "native" the native row VM on the host, "xla" the column
+    evaluator.  Another value raises ValueError."""
+    impl = impl or os.environ.get("MIRA_FOLD_EVAL") or "pallas"
+    if impl not in FOLD_EVALS:
+        raise ValueError(f"MIRA_FOLD_EVAL={impl!r}: expected one of {FOLD_EVALS}")
+    return impl
 
 
 # ---------------------------------------------------------------------------
@@ -204,12 +220,40 @@ class PlonkStructure:
                 self.fixed_words(), 1 << self.k, device)
         return cache[key]
 
-    def _eval_full(self, which: str, Ws, challenges):
-        """Evaluate a compressed-gate expression on every row through the
-        fold evaluator at the single point j = 0 (the homogeneous expression
-        at u = 1 is the compressed one).  Returns (nrow, 8) words."""
+    def _native_fold_evaluator(self, which: str = "homogeneous"):
+        """The native C++ row VM on the host (polynomial/native_evaluator.py)
+        for the compressed or homogeneous expression; raises where the native
+        library is missing."""
+        from ..polynomial.native_evaluator import NativeFoldEvaluator
+
+        key = ("native_fold", which)
+        cache = self._cache()
+        if key not in cache:
+            expr = {"compressed": self.compressed_gates.compressed,
+                    "homogeneous": self.compressed_gates.homogeneous}[which]
+            cache[key] = NativeFoldEvaluator(
+                expr, self.modulus, self.num_advice_columns, self.num_lookups(),
+                self.selectors, self.fixed_words(), 1 << self.k)
+        return cache[key]
+
+    def _eval_full(self, which: str, Ws, challenges, impl=None):
+        """Evaluate a compressed-gate expression on every row, by the route
+        `fold_eval_impl(impl)` names: the fold evaluator at the single point
+        j = 0 (the homogeneous expression at u = 1 is the compressed one;
+        the kernel on the card), the native row VM at j = 0 against a zero
+        second witness, or the column evaluator.  Neither of the last two
+        runs the kernel's code (the native VM shares only the op list's
+        compiler with it).  Returns (nrow, 8) words on Ws[0]'s device."""
         p = self.modulus
-        ch_h = [c % p for c in challenges] + ([1] if which == "compressed" else [])
+        impl = fold_eval_impl(impl)
+        ch = [c % p for c in challenges]
+        if impl == "native":
+            zeros = [torch.zeros(w.shape, dtype=w.dtype) for w in Ws]
+            return self._native_fold_evaluator(which).fold_eval_multi(
+                tuple(Ws), tuple(zeros), [0], ch, [0] * len(ch))[0]
+        if impl == "xla":
+            return self._evaluator(which, Ws[0].device)(Ws, (), ch)
+        ch_h = ch + ([1] if which == "compressed" else [])
         ev = self.fold_evaluator(Ws[0].device)
         return ev.fold_eval_multi(tuple(Ws), tuple(Ws), [0], ch_h,
                                   [0] * len(ch_h))[0]

@@ -227,13 +227,40 @@ def compact_registers(ops: List[tuple]):
     return out, max(n_regs, 1)
 
 
-class FoldEvaluator:
-    """Multi-point fold evaluation of one expression on `device`.
+def query_layout(expr: Expression, num_advice: int, num_lookup: int,
+                 selectors, fixed, nrow: int):
+    """The queries of `expr` as the row VM loads them: (qslot, advice
+    (index, rotation) per advice slot, one (nrow, 8) int32 column of plain
+    words per static slot, already rotated).  Query indices cover
+    selectors, fixed, then the W1 fold-variable range (evaluator.EvalDomain);
+    `fixed` holds each fixed column's plain words up to its last nonzero
+    value (PlonkStructure.fixed_words)."""
+    n_sel, n_fix = len(selectors), len(fixed)
+    max_width = num_advice + 5 * num_lookup
+    qslot, advice_idx_rot, static_cols = {}, [], []
+    for q in _collect_queries(expr):
+        rot = q.rotation % nrow
+        if q.index < n_sel + n_fix:
+            qslot[q] = ("s", len(static_cols))
+            # plain words, zero-padded to nrow
+            part = (ints_to_words([1 if b else 0 for b in selectors[q.index]])
+                    if q.index < n_sel else fixed[q.index - n_sel])
+            words = np.zeros((nrow, NUM_WORDS), dtype=np.int32)
+            words[: len(part)] = part
+            static_cols.append(np.roll(words, -rot, axis=0) if rot else words)
+        else:
+            idx = q.index - n_sel - n_fix
+            if idx >= max_width:
+                raise ValueError(
+                    "fold evaluator only supports first-instance queries")
+            qslot[q] = ("a", len(advice_idx_rot))
+            advice_idx_rot.append((idx, rot))
+    return qslot, advice_idx_rot, static_cols
 
-    Query layout follows evaluator.EvalDomain: indices cover selectors,
-    fixed, then the W1 fold-variable range.  `fixed` holds each fixed
-    column's plain words up to its last nonzero value
-    (PlonkStructure.fixed_words)."""
+
+class FoldEvaluator:
+    """Multi-point fold evaluation of one expression on `device`, with the
+    query layout of `query_layout`."""
 
     def __init__(self, expr: Expression, modulus: int, num_advice: int,
                  num_lookup: int, selectors, fixed, nrow: int, device="cpu"):
@@ -243,37 +270,16 @@ class FoldEvaluator:
         self.lf = limb_field(modulus)
         self.nrow = nrow
         self.device = torch.device(device)
-        n_sel, n_fix = len(selectors), len(fixed)
-        max_width = num_advice + 5 * num_lookup
-
-        self.advice_idx_rot: List[tuple] = []
-        self.qslot = {}
-        static_cols = []
-        for q in _collect_queries(expr):
-            rot = q.rotation % nrow
-            if q.index < n_sel + n_fix:
-                self.qslot[q] = ("s", len(static_cols))
-                # plain words, zero-padded to nrow
-                part = (ints_to_words([1 if b else 0 for b in selectors[q.index]])
-                        if q.index < n_sel else fixed[q.index - n_sel])
-                words = np.zeros((nrow, NUM_WORDS), dtype=np.int32)
-                words[: len(part)] = part
-                static_cols.append((words, rot))
-            else:
-                idx = q.index - n_sel - n_fix
-                if idx >= max_width:
-                    raise ValueError(
-                        "fold evaluator only supports first-instance queries")
-                self.qslot[q] = ("a", len(self.advice_idx_rot))
-                self.advice_idx_rot.append((idx, rot))
+        self.qslot, self.advice_idx_rot, static_cols = query_layout(
+            expr, num_advice, num_lookup, selectors, fixed, nrow)
 
         # (n_sq, nrow, 8) Montgomery words, pre-rotated
         if static_cols:
             self.static_stack = torch.empty(len(static_cols), nrow, NUM_WORDS,
                                             dtype=torch.int32, device=self.device)
-            for i, (words, rot) in enumerate(static_cols):
-                plain = torch.from_numpy(np.roll(words, -rot, axis=0) if rot else words)
-                self.static_stack[i] = self.lf.from_plain(plain.to(self.device))
+            for i, words in enumerate(static_cols):
+                self.static_stack[i] = self.lf.from_plain(
+                    torch.from_numpy(words).to(self.device))
         else:
             self.static_stack = torch.zeros(1, nrow, NUM_WORDS,
                                             dtype=torch.int32,

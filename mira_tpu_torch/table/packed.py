@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..fields.limbs import NUM_LIMBS
-from ..utils.tracing import span
+from ..utils.tracing import fence, span
 
 
 class DeviceWitness:
@@ -48,7 +48,7 @@ class DeviceWitness:
     def vals_mont(self) -> torch.Tensor:
         if self._vals_mont is None:
             with span("vals_to_mont"):
-                self._vals_mont = self.lf.from_plain(self.vals)
+                self._vals_mont = fence(self.lf.from_plain(self.vals))
         return self._vals_mont
 
     def delta_mont(self) -> torch.Tensor:
@@ -61,7 +61,7 @@ class DeviceWitness:
             with span("witness_scatter"):
                 full = self.template_mont.clone()
                 full[self.positions] = self.vals_mont
-                self._full = full
+                self._full = fence(full)
         return self._full
 
     def to_int_cols(self) -> List[List[int]]:

@@ -1,22 +1,33 @@
-"""Span tracing for the port: the span tree and report of
-mira_tpu/utils/tracing.py, without its per-span jax import.
+"""Span tracing for the port (port of mira_tpu/utils/tracing.py): the span
+tree, its report and per-name aggregate, and a memory report.
 
     with span("fold_step"):
         ...
     print(report(min_runtime=0.1))
 
-MIRA_TRACE=off disables collection.  Spans measure host wall time; work
-queued on the card is attributed to whichever span waits for it.
+Env: MIRA_TRACE=json emits one JSON line per span close on stderr (mira_tpu's
+keys); MIRA_TRACE=off disables collection.  While a torch profiler runs, each
+span also opens a `torch.profiler.record_function` of its name, so the
+profile's trace names the spans (mira_tpu opens a `jax.named_scope`).
+
+Spans measure host wall time: work queued on the card is attributed to
+whichever span waits for it.  With MIRA_SYNC_SPANS=1 the spans that end in
+`fence` wait for the card there, so their time includes the device work
+they queued.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import json
 import os
+import sys
 import threading
 import time
 from typing import List, Optional
+
+import torch
 
 
 class _Span:
@@ -47,9 +58,13 @@ class _Collector(threading.local):
 _state = _Collector()
 
 
+def _mode() -> str:
+    return os.environ.get("MIRA_TRACE", "collect")
+
+
 @contextlib.contextmanager
 def span(name: str):
-    if os.environ.get("MIRA_TRACE", "collect") == "off":
+    if _mode() == "off":
         yield
         return
     s = _Span(name, _state.current)
@@ -58,11 +73,28 @@ def span(name: str):
     else:
         _state.current.children.append(s)
     _state.current = s
+    scope = (torch.profiler.record_function(name)
+             if torch.autograd._profiler_enabled() else contextlib.nullcontext())
     try:
-        yield s
+        with scope:
+            yield s
     finally:
         s.end = time.perf_counter()
         _state.current = s.parent
+        if _mode() == "json":
+            print(json.dumps({"span": name, "enter": s.start, "close": s.end,
+                              "busy_s": round(s.busy, 6),
+                              "total_s": round(s.total, 6)}), file=sys.stderr)
+
+
+def fence(x):
+    """With MIRA_SYNC_SPANS=1, wait for the card's work on x (a tensor or a
+    tuple of tensors) before the enclosing span closes; returns x."""
+    if os.environ.get("MIRA_SYNC_SPANS") == "1":
+        t = x[0] if isinstance(x, (tuple, list)) else x
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+    return x
 
 
 def instrument(fn):
@@ -114,4 +146,43 @@ def report(min_runtime: float = 0.0) -> str:
 
     for r in _state.roots:
         walk(r, 0)
+    return "\n".join(lines)
+
+
+def aggregate(min_runtime: float = 0.0) -> str:
+    """Per-span-name count, busy and total seconds over the tree, largest
+    busy first, counting the spans of at least min_runtime."""
+    stats = {}
+
+    def walk(s: _Span):
+        if s.total >= min_runtime:
+            c, b, t = stats.get(s.name, (0, 0.0, 0.0))
+            stats[s.name] = (c + 1, b + s.busy, t + s.total)
+        for ch in s.children:
+            walk(ch)
+
+    for r in _state.roots:
+        walk(r)
+    return "\n".join(
+        f"{name}: n={c} busy {b:.3f}s total {t:.3f}s"
+        for name, (c, b, t) in sorted(stats.items(), key=lambda kv: -kv[1][1]))
+
+
+def memory_report() -> str:
+    """Host peak RSS, then for each visible CUDA device the bytes its
+    tensors hold now and at peak, the card's total and what torch's caching
+    allocator reserves; the host line alone where no card is visible."""
+    import resource
+
+    peak_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    lines = [f"host peak RSS: {peak_kb / 1048576:.2f} GB"]
+    if torch.cuda.is_available():
+        mb = 1048576
+        for i in range(torch.cuda.device_count()):
+            total = torch.cuda.mem_get_info(i)[1]
+            lines.append(
+                f"cuda:{i} in_use {torch.cuda.memory_allocated(i) / mb:.1f} MB "
+                f"peak {torch.cuda.max_memory_allocated(i) / mb:.1f} MB "
+                f"limit {total / mb:.1f} MB "
+                f"reserved {torch.cuda.memory_reserved(i) / mb:.1f} MB")
     return "\n".join(lines)

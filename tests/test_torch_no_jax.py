@@ -1,5 +1,6 @@
 """The port imports neither jax nor mira_tpu: every mira_tpu_torch module
-imports, and a tiny SPS trace + commitment + is_sat + fold evaluation, a
+imports, and a tiny SPS trace + commitment + is_sat + fold evaluation (and
+the native row VM's, with its cross terms), a
 commitment through a multiples table, a Groth16 prove/verify, a NIFS fold
 step (and, on a mesh of one, a sharded commit and fold step), an IVC
 checkpoint saved and resumed and a KZG commitment and opening run, in a
@@ -70,11 +71,25 @@ out = S.fold_evaluator("cpu").fold_eval_multi(trace.w.W, trace.w.W, [0, 1, 2],
 assert out.shape == (3, 8, 8)
 assert not trace.u.W_commitments[0].is_inf
 
+# the native row VM: the same rows, and the decider's routes
+import torch
+from mira_tpu_torch.polynomial.native_evaluator import NativeFoldEvaluator
+
+nat = S._native_fold_evaluator()
+assert isinstance(nat, NativeFoldEvaluator)
+assert torch.equal(nat.fold_eval_multi(trace.w.W, trace.w.W, [0, 1, 2], [1], [1]),
+                   out)
+for impl in ("native", "xla"):
+    assert not S._eval_full("compressed", trace.w.W, [], impl=impl).any()
+
 # a NIFS fold step: the trace folded into itself, relaxed
 pp, vp = VanillaFS.setup_params(AffinePoint.generator(BN254_G1), S)
 acc = trace.to_relax(S.k)
 folded, proof = VanillaFS.prove(ck, pp, create_ro(BN254_FQ), acc, trace)
 S.is_sat_relaxed(ck, folded.U, folded.W)
+cross, _ = VanillaFS.commit_cross_terms(ck, S, acc.U, acc.W, trace.u, trace.w,
+                                        _impl="native")
+assert len(cross) == S.get_degree_for_folding() - 1
 assert VanillaFS.verify(vp, create_ro(BN254_FQ), create_ro(BN254_FQ), acc.U,
                         trace.u, proof) == folded.U
 

@@ -100,6 +100,30 @@ def relaxed_trace_to_mira(t):
     return ms.RelaxedPlonkTrace(U, W)
 
 
+def plonk_trace_to_mira(t):
+    """Port PlonkTrace -> mira_tpu's (loads jax, so it lives here)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from mira_tpu.fields.limbs import limb_field as jax_limb_field
+    from mira_tpu.plonk import structure as ms
+    from mira_tpu_torch.convert import words_to_limbs16
+
+    U = ms.PlonkInstance(**{f.name: to_mira(getattr(t.u, f.name))
+                            for f in dataclasses.fields(ms.PlonkInstance)})
+    lf = jax_limb_field(t.w.lf.modulus)
+    return ms.PlonkTrace(U, ms.PlonkWitness(
+        lf, [jnp.asarray(words_to_limbs16(w)) for w in t.w.W]))
+
+
+def tamper_word(lf, t, index):
+    """A copy of the word tensor t with its value at `index` plus one."""
+    t = t.clone()
+    t[index] = lf.encode([(lf.decode(t[index : index + 1])[0] + 1) % lf.modulus])[0]
+    return t
+
+
 def accumulator_to_mira(acc):
     """Port ProtoGalaxy Accumulator -> mira_tpu's."""
     from mira_tpu.nifs.protogalaxy import Accumulator
