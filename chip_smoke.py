@@ -1126,20 +1126,12 @@ def start_keygen(specs):
 
 
 def launch_counts():
-    from mira_tpu_torch.ops import cuda_msm
-    from mira_tpu_torch.polynomial import fold_evaluator as fe
+    """Each kernel's C entry calls so far in this process (the tracing
+    layer's counters, `tracing.KERNELS`)."""
+    from mira_tpu_torch.utils import tracing
 
-    from mira_tpu_torch.ops import cuda_ntt, cuda_poseidon
-
-    return {"msm_bucket": cuda_msm.launches, "msm_fixed": cuda_msm.fixed_launches,
-            "fixed_table": cuda_msm.table_launches, "fold_eval": fe.launches,
-            "ntt_fourstep": cuda_ntt.fourstep_launches,
-            "ntt_stage": cuda_ntt.stage_launches,
-            "poseidon": cuda_poseidon.launches,
-            "msm_pippenger": cuda_msm.pippenger_launches,
-            "msm_pippenger_u4": cuda_msm.pippenger_u4_launches,
-            "msm_window": cuda_msm.window_launches,
-            "msm_lane": cuda_msm.lane_launches}
+    totals = tracing.counts()
+    return {name: totals.get(name, 0) for name in tracing.KERNELS}
 
 
 @contextlib.contextmanager
@@ -1148,15 +1140,14 @@ def uncounted():
     (device times, the other cut, the previous design, each tree level
     alone), not the paths' own: their counts are put back as they were, so
     that the "ms lost" lines weigh the paths as before."""
-    from mira_tpu_torch.ops import cuda_ntt, cuda_poseidon
+    from mira_tpu_torch.utils import tracing
 
-    saved = (cuda_ntt.fourstep_launches, cuda_ntt.stage_launches,
-             cuda_poseidon.launches)
+    saved = {k: v for k, v in launch_counts().items()
+             if k in ("ntt_fourstep", "ntt_stage", "poseidon")}
     try:
         yield
     finally:
-        (cuda_ntt.fourstep_launches, cuda_ntt.stage_launches,
-         cuda_poseidon.launches) = saved
+        tracing.set_counts(saved)
 
 
 def require_launched(counts: dict, names, path: str):
@@ -1168,17 +1159,9 @@ def require_launched(counts: dict, names, path: str):
 
 
 def reset_launch_counts():
-    from mira_tpu_torch.ops import cuda_msm
-    from mira_tpu_torch.polynomial import fold_evaluator as fe
+    from mira_tpu_torch.utils import tracing
 
-    from mira_tpu_torch.ops import cuda_ntt, cuda_poseidon
-
-    cuda_msm.launches = cuda_msm.fixed_launches = cuda_msm.table_launches = 0
-    cuda_msm.pippenger_launches = cuda_msm.pippenger_u4_launches = 0
-    cuda_msm.window_launches = cuda_msm.lane_launches = 0
-    fe.launches = 0
-    cuda_ntt.fourstep_launches = cuda_ntt.stage_launches = 0
-    cuda_poseidon.launches = 0
+    tracing.set_counts({name: 0 for name in tracing.KERNELS})
 
 
 def fixed_checks(torch, dev, rng, ck, shapes, path, defer=None):
@@ -2676,6 +2659,8 @@ def _paths(args, torch, dev, rng, card, prev, t_all, ts_pool, ts_job, t_ts,
     log("the same spans by name (count, busy and total seconds), largest busy "
         "first:")
     log(tracing.aggregate(0.01))
+    log("host syncs and kernel calls charged to the spans that made them, by "
+        f"name: {json.dumps(tracing.counts_by_span(), sort_keys=True)}")
     log("memory after the fold steps:")
     log(tracing.memory_report())
     log(f"peak device memory over the fold steps: {peak / 2**30:.3f} GiB")

@@ -58,6 +58,12 @@ class IVC:
         debug_mode: bool = False,
     ):
         self._init_common(pp, primary, secondary, debug_mode)
+        with span("IVC.zero_step"):
+            self._zero_step(primary_z_0, secondary_z_0)
+
+    def _zero_step(self, primary_z_0: List[int], secondary_z_0: List[int]):
+        """Both sides' first traces from z_0 (`resume` skips this)."""
+        pp, primary, secondary = self.pp, self.primary_circuit, self.secondary_circuit
         primary_ro, secondary_ro = self._primary_ro, self._secondary_ro
 
         # ------- zero step, primary side (ivc :196-280)

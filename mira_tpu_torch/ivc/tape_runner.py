@@ -25,6 +25,7 @@ from typing import Callable, List
 
 from ..table.circuit import ConstraintSystem, RegionCtx, TableData
 from ..table.tape import Tape
+from ..utils.tracing import span
 
 from .step_folding_circuit import StepFoldingCircuit, StepInputs
 
@@ -239,7 +240,8 @@ def replay_sfc(captured: CapturedSynthesis, sfc: StepFoldingCircuit, device):
     if not tape_vm_available():
         raise RuntimeError("witness-tape replay needs the native tape VM "
                            "(native/tape_vm.cpp), which did not load")
-    inputs = flatten_step_inputs(sfc.inputs, sfc.step_circuit)
+    with span("step_inputs"):
+        inputs = flatten_step_inputs(sfc.inputs, sfc.step_circuit)
     return _replay_device(captured, inputs, device)
 
 
@@ -255,54 +257,55 @@ def _replay_device(captured: CapturedSynthesis, inputs: List[int], device):
 
     from ..fields.limbs import NUM_LIMBS, NUM_WORDS, limb_field
     from ..table.packed import DeviceWitness, pack_int_cols
-    from ..utils.tracing import span
 
     nrow = 1 << captured.k
     lf = limb_field(captured.modulus)
-    out_buf, prep = tape_vm_run_raw(captured.tape, inputs)
+    with span("tape_vm"):
+        out_buf, prep = tape_vm_run_raw(captured.tape, inputs)
 
-    if captured.dev_positions is None:  # one-time per tape
-        writes = captured.tape.writes
-        cells = np.fromiter((c * nrow + r for c, r, _slot in writes), np.int64,
-                            len(writes))
-        dyn_pos = cells[prep["dyn_writes"]]
-        static_pos = cells[np.asarray(
-            [w for w, _slot in prep["static_input_writes"]], dtype=np.int64)]
-        combined = np.concatenate([dyn_pos, static_pos])
-        # each position once, keeping the LAST write per cell (the
-        # sequential host-scatter semantics), ordered by position
-        _, keep = np.unique(combined[::-1], return_index=True)
-        keep = len(combined) - 1 - keep
-        captured.dev_keep = keep[np.argsort(combined[keep], kind="stable")]
-        positions = combined[captured.dev_keep]
-        captured.dev_positions_np = positions
-        captured.dev_positions = torch.from_numpy(positions).to(device)
-        captured.dev_static_slots = [
-            slot for _w, slot in prep["static_input_writes"]
-        ]
-        if captured.packed_template is None:
-            captured.packed_template = pack_int_cols(
-                captured.advice_template, nrow
+    with span("replay_pack"):
+        if captured.dev_positions is None:  # one-time per tape
+            writes = captured.tape.writes
+            cells = np.fromiter((c * nrow + r for c, r, _slot in writes), np.int64,
+                                len(writes))
+            dyn_pos = cells[prep["dyn_writes"]]
+            static_pos = cells[np.asarray(
+                [w for w, _slot in prep["static_input_writes"]], dtype=np.int64)]
+            combined = np.concatenate([dyn_pos, static_pos])
+            # each position once, keeping the LAST write per cell (the
+            # sequential host-scatter semantics), ordered by position
+            _, keep = np.unique(combined[::-1], return_index=True)
+            keep = len(combined) - 1 - keep
+            captured.dev_keep = keep[np.argsort(combined[keep], kind="stable")]
+            positions = combined[captured.dev_keep]
+            captured.dev_positions_np = positions
+            captured.dev_positions = torch.from_numpy(positions).to(device)
+            captured.dev_static_slots = [
+                slot for _w, slot in prep["static_input_writes"]
+            ]
+            if captured.packed_template is None:
+                captured.packed_template = pack_int_cols(
+                    captured.advice_template, nrow
+                )
+            captured.dev_template_mont = lf.encode_raw16(
+                captured.packed_template, device)
+            captured.dev_template_vals = captured.dev_template_mont[
+                captured.dev_positions
+            ]
+
+        # (ndyn, 16) uint16 view of the VM output (4 x 64-bit words per value)
+        dyn16 = out_buf.view("<u2").reshape(-1, NUM_LIMBS)
+        if captured.dev_static_slots:
+            static16 = np.zeros(
+                (len(captured.dev_static_slots), NUM_LIMBS), dtype="<u2"
             )
-        captured.dev_template_mont = lf.encode_raw16(
-            captured.packed_template, device)
-        captured.dev_template_vals = captured.dev_template_mont[
-            captured.dev_positions
-        ]
-
-    # (ndyn, 16) uint16 view of the VM output (4 x 64-bit words per value)
-    dyn16 = out_buf.view("<u2").reshape(-1, NUM_LIMBS)
-    if captured.dev_static_slots:
-        static16 = np.zeros(
-            (len(captured.dev_static_slots), NUM_LIMBS), dtype="<u2"
-        )
-        for i, slot in enumerate(captured.dev_static_slots):
-            v = int(inputs[slot])
-            static16[i] = [(v >> (16 * j)) & 0xFFFF for j in range(NUM_LIMBS)]
-        all16 = np.concatenate([dyn16, static16])
-    else:
-        all16 = dyn16
-    all16 = np.ascontiguousarray(all16[captured.dev_keep])
+            for i, slot in enumerate(captured.dev_static_slots):
+                v = int(inputs[slot])
+                static16[i] = [(v >> (16 * j)) & 0xFFFF for j in range(NUM_LIMBS)]
+            all16 = np.concatenate([dyn16, static16])
+        else:
+            all16 = dyn16
+        all16 = np.ascontiguousarray(all16[captured.dev_keep])
     with span("replay_upload"):
         vals = torch.from_numpy(
             all16.view("<i4").reshape(-1, NUM_WORDS)).to(device)

@@ -266,15 +266,16 @@ class VanillaFS:
                            U1: RelaxedPlonkInstance, U2: PlonkInstance,
                            cross_term_g1_commits: List[AffinePoint],
                            cross_term_gt_commits: List[Tuple12]) -> int:
-        scalar = field(U1.curve.scalar_modulus)
-        ro_acc.absorb_point(pp_digest)
-        U1.absorb_into(ro_acc)
-        U2.absorb_into(ro_acc)
-        for c in cross_term_g1_commits:
-            ro_acc.absorb_point(c)
-        for t in cross_term_gt_commits:
-            ro_acc.absorb_fp12_tuple(t)
-        return ro_acc.squeeze(scalar, NUM_CHALLENGE_BITS).v
+        with span("nifs_challenge"):
+            scalar = field(U1.curve.scalar_modulus)
+            ro_acc.absorb_point(pp_digest)
+            U1.absorb_into(ro_acc)
+            U2.absorb_into(ro_acc)
+            for c in cross_term_g1_commits:
+                ro_acc.absorb_point(c)
+            for t in cross_term_gt_commits:
+                ro_acc.absorb_fp12_tuple(t)
+            return ro_acc.squeeze(scalar, NUM_CHALLENGE_BITS).v
 
     @staticmethod
     def setup_params(pp_digest: AffinePoint, S: PlonkStructure):
@@ -302,7 +303,8 @@ class VanillaFS:
             ck, pp.S, U1, W1, U2, W2, rng=rng, mesh=mesh)
         r = VanillaFS.generate_challenge(pp.pp_digest, ro_acc, U1, U2,
                                          g1_commits, gt_commits)
-        U = U1.fold(U2, g1_commits, gt_commits, r)
+        with span("instance_fold"):
+            U = U1.fold(U2, g1_commits, gt_commits, r)
         with span("witness_fold"):
             W = W1.fold(W2, cross_terms, r, mesh=mesh)
         return RelaxedPlonkTrace(U, W), (g1_commits, gt_commits)

@@ -28,6 +28,7 @@ from ..curves.host import CurveParams
 from .. import _build
 from ..curves.torch_curve import jacobian_ops
 from ..fields.limbs import NUM_WORDS, limb_field
+from ..utils import tracing
 from .msm import (
     LANE_WINDOWS,
     PIPPENGER_WINDOW,
@@ -41,13 +42,6 @@ from .msm import (
     precompute_fixed_table_plain,
 )
 
-launches = 0  # bucket-MSM kernel launches (one per MSM on the card)
-fixed_launches = 0  # fixed-base MSM launches
-table_launches = 0  # multiples-table builds
-pippenger_launches = 0  # kernel 4 (signed 5-bit Pippenger) MSMs
-pippenger_u4_launches = 0  # kernel 5 (unsigned 4-bit Pippenger) MSMs
-window_launches = 0  # kernel 6 ("window") MSMs, on kernel 5's C calls
-lane_launches = 0  # kernel 7 ("lane") MSMs, on kernel 1's C calls
 # bases per multiples table of kernels 4 and 5: at 2^21 bases on the H100,
 # chunks of 2^18, 2^19 and 2^20 took 71.2, 72.1 and 73.3 ms and 472, 828
 # and 1,596 MiB of scratch (chip_smoke.py `engine_extras`)
@@ -141,13 +135,12 @@ def msm_cuda(scalars: torch.Tensor, points, curve: CurveParams):
     canonical Jacobian triple of (8,) tensors.  Duplicate and opposite
     bases, zero scalars and identity lanes are exact (complete XYZZ
     formulas, no offset point)."""
-    global launches
     phases, out = bucket_phases(scalars, points, curve)
     if out is None:
         return phases
     for name, run in phases:
         _build.check(run(), f"msm_bucket {name}")
-    launches += 1
+    tracing.count("msm_bucket")
     return (out[0], out[1], out[2])
 
 
@@ -226,19 +219,14 @@ def msm_pippenger_cuda(scalars: torch.Tensor, points, curve: CurveParams,
     algorithm.  Bases affine or identity (others raise ValueError); duplicate
     and opposite bases, identity lanes and zero scalars are exact (complete
     XYZZ formulas).  Returns a canonical Jacobian triple of (8,) tensors.
-    Counted as `pippenger_launches` or `pippenger_u4_launches` alone: its
-    table build and accumulation are kernels 3b's and 3's code, but not
-    their launches."""
-    global pippenger_launches, pippenger_u4_launches
+    Counted as `msm_pippenger` or `msm_pippenger_u4` alone: its table build
+    and accumulation are kernels 3b's and 3's code, but not their calls."""
     phases, out = pippenger_phases(scalars, points, curve, signed, chunk)
     if out is None:
         return phases
     for name, run in phases:
         _build.check(run(), f"msm_pippenger {name}")
-    if signed:
-        pippenger_launches += 1
-    else:
-        pippenger_u4_launches += 1
+    tracing.count("msm_pippenger" if signed else "msm_pippenger_u4")
     return (out[0], out[1], out[2])
 
 
@@ -347,9 +335,8 @@ def msm_lane_cuda(scalars: torch.Tensor, points, curve: CurveParams,
     raises ValueError on others).  The calls of `lane_phases`, the parts'
     results added by the complete Jacobian addition; `records` as in
     `lane_parts`.  Returns a canonical Jacobian triple of (8,) tensors.
-    Counted as `window_launches` or `lane_launches` alone, never as the
-    kernels whose C calls it makes."""
-    global window_launches, lane_launches
+    Counted as `msm_window` or `msm_lane` alone, never as the kernels whose
+    C calls it makes."""
     _, dev, _ = _check_msm_args(scalars, points, "msm_lane_cuda")
     total = None
     for phases, out in lane_phases(scalars, points, curve, window, records):
@@ -360,10 +347,7 @@ def msm_lane_cuda(scalars: torch.Tensor, points, curve: CurveParams,
         total = part if total is None else jacobian_ops(curve.name).add(total, part)
     if total is None:  # N = 0: nothing launched
         return _identity(curve, dev)
-    if window == 4:
-        window_launches += 1
-    else:
-        lane_launches += 1
+    tracing.count("msm_window" if window == 4 else "msm_lane")
     return total
 
 
@@ -382,7 +366,6 @@ def fixed_table_cuda(points, curve: CurveParams, window: int) -> torch.Tensor:
     bases must be affine (Z = 1) or the identity (Z = 0): the kernel's
     affine doubling and mixed additions take any other Z for 1, so other
     bases raise ValueError (one check on the card per build)."""
-    global table_launches
     field = _build.field_id(curve.base_modulus)
     if window not in FIXED_WINDOWS:
         raise ValueError(f"fixed_table_cuda: window {window} not in {FIXED_WINDOWS}")
@@ -406,7 +389,7 @@ def fixed_table_cuda(points, curve: CurveParams, window: int) -> torch.Tensor:
         field, X.data_ptr(), Y.data_ptr(), Z.data_ptr(), n, window,
         tab.data_ptr(), hs.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "fixed_table")
-    table_launches += 1
+    tracing.count("fixed_table")
     return tab
 
 
@@ -423,13 +406,12 @@ def msm_fixed(scalars: torch.Tensor, table: torch.Tensor, curve: CurveParams,
 
 def msm_fixed_cuda(scalars: torch.Tensor, table: torch.Tensor,
                    curve: CurveParams, window: int):
-    global fixed_launches
     phases, out = fixed_phases(scalars, table, curve, window)
     if out is None:
         return phases
     for name, run in phases:
         _build.check(run(), f"msm_fixed {name}")
-    fixed_launches += 1
+    tracing.count("msm_fixed")
     return (out[0], out[1], out[2])
 
 

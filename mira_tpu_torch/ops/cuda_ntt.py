@@ -22,10 +22,9 @@ import torch
 
 from .. import _build
 from ..fields.limbs import NUM_WORDS, limb_field
+from ..utils import tracing
 from .ntt import _log2, _twiddle_table, get_omega, power_table
 
-fourstep_launches = 0  # four-step transforms launched (one kernel a pass)
-stage_launches = 0  # butterfly stages launched
 FOURSTEP_MIN_LOG = 2  # n1 = 2^(log n // 2) must be at least 2
 FOURSTEP_MAX_LOG = 24  # the sizes the kernel is tested and timed at
 # From this size on the transform is three passes (size-n2 columns cut in
@@ -66,7 +65,6 @@ def stage_cuda(a: torch.Tensor, tw: torch.Tensor, half: int, modulus: int,
     of their indices (the transform's first stage); `scale` multiplies both
     outputs by one element (its last); `out` may be `a` itself unless
     `gather`."""
-    global stage_launches
     field = _build.field_id(modulus)
     batch = _check(a, "stage_cuda")
     n = a.shape[-2]
@@ -87,7 +85,7 @@ def stage_cuda(a: torch.Tensor, tw: torch.Tensor, half: int, modulus: int,
         int(gather), None if scale is None else scale.data_ptr(), batch,
         _build.stream_ptr(a.device))
     _build.check(err, "ntt_stage")
-    stage_launches += 1
+    tracing.count("ntt_stage")
     return out
 
 
@@ -248,7 +246,6 @@ def _launch_args(modulus: int, log_n: int, split: tuple, inverse: bool,
 def _fourstep(a: torch.Tensor, modulus: int, inverse: bool, split: tuple):
     """The transform as the passes of `split`, one launch each; the input is
     left as it was.  Between passes the data moves between two buffers."""
-    global fourstep_launches
     field = _build.field_id(modulus)
     batch = _check(a, "ntt_fourstep_cuda")
     if batch > 65535:
@@ -271,7 +268,7 @@ def _fourstep(a: torch.Tensor, modulus: int, inverse: bool, split: tuple):
                                 batch, stream)
         _build.check(err, "ntt_fourstep")
         src = dst
-    fourstep_launches += 1
+    tracing.count("ntt_fourstep")
     return src
 
 

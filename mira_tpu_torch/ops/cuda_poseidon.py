@@ -15,9 +15,9 @@ import torch
 
 from .. import _build
 from ..fields.limbs import NUM_WORDS, limb_field
+from ..utils import tracing
 from .poseidon_device import IV, spec_constants
 
-launches = 0  # sponge kernel launches (one per batch)
 MAX_T = 5  # the kernel keeps the state in registers: built for t = 2..5
 ROUTES = ("thread", "lanes")  # csrc/poseidon.cu's `route` 0 and 1
 # The lane route takes a batch whose lanes fill at most two warps on each of
@@ -83,7 +83,6 @@ def _check(values: torch.Tensor, t: int, rate: int, r_f: int, r_p: int):
 def _launch(values: torch.Tensor, modulus: int, t: int, rate: int, r_f: int,
             r_p: int, route: str):
     """One launch of the sponge kernel on `route` ("thread" or "lanes")."""
-    global launches
     field = _build.field_id(modulus)
     _check(values, t, rate, r_f, r_p)
     n, length = values.shape[0], values.shape[1]
@@ -97,5 +96,5 @@ def _launch(values: torch.Tensor, modulus: int, t: int, rate: int, r_f: int,
         consts.data_ptr(), consts.shape[0], ROUTES.index(route),
         _build.stream_ptr(values.device))
     _build.check(err, "poseidon")
-    launches += 1
+    tracing.count("poseidon")
     return out

@@ -33,6 +33,7 @@ from ..polynomial.expression import (
 
 from .. import _build
 from ..fields.limbs import NUM_WORDS, R_BITS, Lz, ints_to_words, limb_field
+from ..utils import tracing
 from .evaluator import advice_round_col
 
 OP_LOAD_STATIC = 0
@@ -43,8 +44,6 @@ OP_ADD = 4
 OP_MUL = 5
 OP_NEG = 6
 OP_OUTPUT = 7
-
-launches = 0  # fold_eval kernel launches
 
 
 def fold_eval_block(n_regs: int, n_ops: int) -> int:
@@ -390,7 +389,6 @@ def fold_eval_plain(lf, ops, stat, w1, w2, ch, jm, consts,
 def fold_eval_cuda(lf, ops_t, n_regs, stat, w1, w2, ch, jm, consts, rows=None):
     """Launch csrc/fold_eval.cu on rows [lo, hi) (all rows without `rows`);
     returns (n_j, hi - lo, 8) Montgomery words."""
-    global launches
     field = _build.field_id(lf.modulus)
     nrow = stat.shape[1]
     lo, hi = _row_range(rows, nrow)
@@ -418,6 +416,6 @@ def fold_eval_cuda(lf, ops_t, n_regs, stat, w1, w2, ch, jm, consts, rows=None):
         out.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(err, "fold_eval")
-    launches += 1
+    tracing.count("fold_eval")
     return out
 

@@ -14,6 +14,15 @@ Spans measure host wall time: work queued on the card is attributed to
 whichever span waits for it.  With MIRA_SYNC_SPANS=1 the spans that end in
 `fence` wait for the card there, so their time includes the device work
 they queued.
+
+Counters: `count(name)` adds to a process-wide total (`counts()`, never
+cleared by `reset()`) and, while spans collect, to the innermost open span
+(`span_counts()`, `counts_by_span()`).  The kernels' C entry calls count
+under the names of `KERNELS`.  While spans collect on a CUDA device, torch's
+sync debug mode is on and each host wait on the card it flags (`.item()`,
+`bool(tensor)`, `.tolist()`, a copy between host and card, `nonzero`)
+counts as `host_sync`, unprinted; `torch.cuda.synchronize()`, which the
+fences call, is not flagged.
 """
 
 from __future__ import annotations
@@ -25,13 +34,23 @@ import os
 import sys
 import threading
 import time
-from typing import List, Optional
+import warnings
+from typing import Dict, List, Optional
 
 import torch
 
 
+# the kernels' counters: one count per C entry call
+KERNELS = ("msm_bucket", "msm_fixed", "fixed_table", "fold_eval", "ntt_fourstep",
+           "ntt_stage", "poseidon", "msm_pippenger", "msm_pippenger_u4", "msm_window",
+           "msm_lane")
+HOST_SYNC = "host_sync"
+# the text of torch's warning in sync debug mode "warn"
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 class _Span:
-    __slots__ = ("name", "start", "end", "children", "parent")
+    __slots__ = ("name", "start", "end", "children", "parent", "counts")
 
     def __init__(self, name: str, parent: Optional["_Span"]):
         self.name = name
@@ -39,6 +58,7 @@ class _Span:
         self.end: Optional[float] = None
         self.children: List[_Span] = []
         self.parent = parent
+        self.counts: Optional[Dict[str, int]] = None  # charged to this span alone
 
     @property
     def total(self) -> float:
@@ -56,10 +76,54 @@ class _Collector(threading.local):
 
 
 _state = _Collector()
+_totals: Dict[str, int] = {}
 
 
 def _mode() -> str:
     return os.environ.get("MIRA_TRACE", "collect")
+
+
+def count(name: str, n: int = 1):
+    """Add n to the counter `name`: to its process-wide total and, while
+    spans collect, to the innermost open span."""
+    _totals[name] = _totals.get(name, 0) + n
+    s = _state.current
+    if s is not None:
+        if s.counts is None:
+            s.counts = {}
+        s.counts[name] = s.counts.get(name, 0) + n
+
+
+def counts() -> Dict[str, int]:
+    """The process-wide totals of every counter (a copy)."""
+    return dict(_totals)
+
+
+def set_counts(values: Dict[str, int]):
+    """Set the process-wide totals of the counters named in `values` (to put
+    back totals saved from `counts()`, or to zero them)."""
+    _totals.update(values)
+
+
+def _show_warning(message, category, filename, lineno, file=None, line=None):
+    if str(message).startswith(SYNC_WARNING):
+        count(HOST_SYNC)
+        return
+    _shown_before(message, category, filename, lineno, file, line)
+
+
+_shown_before = warnings.showwarning
+
+
+def _route_sync_warnings():
+    """Count torch's sync warnings as `host_sync` in place of showing them:
+    every one of them reaches `_show_warning` (an "always" filter), which
+    shows other warnings as before.  A warnings context that restores the
+    warning hook on exit undoes this, and the next span redoes it."""
+    global _shown_before
+    _shown_before = warnings.showwarning
+    warnings.showwarning = _show_warning
+    warnings.filterwarnings("always", message=SYNC_WARNING)
 
 
 @contextlib.contextmanager
@@ -67,6 +131,12 @@ def span(name: str):
     if _mode() == "off":
         yield
         return
+    if warnings.showwarning is not _show_warning and torch.cuda.is_initialized():
+        _route_sync_warnings()
+        if torch.cuda.get_sync_debug_mode() == 0:
+            with warnings.catch_warnings():  # torch's note that the mode is a prototype
+                warnings.simplefilter("ignore", UserWarning)
+                torch.cuda.set_sync_debug_mode("warn")
     s = _Span(name, _state.current)
     if _state.current is None:
         _state.roots.append(s)
@@ -111,6 +181,39 @@ def instrument(fn):
 def reset():
     _state.roots = []
     _state.current = None
+
+
+def counts_by_span(until: Optional[float] = None) -> Dict[str, Dict[str, int]]:
+    """{span name: {counter: n}}: the counts charged to the spans of each
+    name themselves (not to their children), over the collected tree; with
+    `until` (a time.perf_counter() reading), over the spans opened before
+    it."""
+    out: Dict[str, Dict[str, int]] = {}
+
+    def walk(s: _Span):
+        if until is not None and s.start >= until:
+            return
+        if s.counts:
+            entry = out.setdefault(s.name, {})
+            for k, v in s.counts.items():
+                entry[k] = entry.get(k, 0) + v
+        for c in s.children:
+            walk(c)
+
+    for r in _state.roots:
+        walk(r)
+    return out
+
+
+def span_counts(until: Optional[float] = None) -> Dict[str, int]:
+    """{counter: n} summed over the collected span tree: what was counted
+    inside some span since the last `reset()` (in spans opened before
+    `until`, where given)."""
+    out: Dict[str, int] = {}
+    for per_span in counts_by_span(until).values():
+        for k, v in per_span.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def totals() -> dict:

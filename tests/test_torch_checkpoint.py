@@ -34,6 +34,7 @@ from mira_tpu_torch.ops.commitment import CommitmentKey
 from mira_tpu_torch.table.runner import CircuitRunner
 
 from test_nifs import K, FiboCircuit, MulCircuit
+from torch_port_helpers import k17_trivial_pp as _k17_pp
 from torch_port_helpers import same
 
 # TensorStar's secondary side (workloads/tensorstar.py)
@@ -170,19 +171,6 @@ def test_malformed_witness_array_raises(folded, tmp_path, key, bad):
     np.savez_compressed(path, **d)
     with pytest.raises(ValueError):
         checkpoint.load(_blank(folded["port"]), path)
-
-
-def _k17_pp():
-    from mira_tpu_torch.ivc.public_params import CircuitSide, PublicParams
-    from mira_tpu_torch.ivc.step_circuit import TrivialCircuit
-    from mira_tpu_torch.ops.mock_commitment import MockCommitmentKey
-
-    return PublicParams(
-        CircuitSide(TrivialCircuit(arity=1),
-                    MockCommitmentKey(BN254_G1, 21, b"bn256", "cpu"), 17),
-        CircuitSide(TrivialCircuit(arity=1),
-                    MockCommitmentKey(GRUMPKIN, 21, b"grumpkin", "cpu"), 17),
-        BN254_G1, GRUMPKIN)
 
 
 def _same_ivc_state(a, b):

@@ -30,6 +30,7 @@ from mira_tpu_torch.ops.msm import (
     precompute_fixed_table_plain,
 )
 from mira_tpu_torch.table.runner import CircuitRunner
+from mira_tpu_torch.utils import tracing
 
 from torch_port_helpers import cuda_device  # noqa: F401
 
@@ -71,6 +72,12 @@ def _adversarial(curve, n, seed):
     sc[3] = sc[10]
     sc[5] = 0
     return sc, pts
+
+
+def _launched(*names):
+    """The kernels' call counts so far (the tracing layer's totals)."""
+    totals = tracing.counts()
+    return {k: totals.get(k, 0) for k in names}
 
 
 def _run(fn, curve, sc, pts, dev):
@@ -425,9 +432,9 @@ def test_poseidon_route_follows_the_rule(cuda_device):  # noqa: F811
     for n in (cross, cross + 1):
         vals = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(2 * n)]
         flat = lf.encode(vals, cuda_device).reshape(n, 2, 8)
-        before = cuda_poseidon.launches
+        before = _launched("poseidon")["poseidon"]
         got = poseidon_hash_batch(flat, p)
-        assert cuda_poseidon.launches == before + 1
+        assert _launched("poseidon")["poseidon"] == before + 1
         for route in cuda_poseidon.ROUTES:
             assert torch.equal(got, cuda_poseidon._launch(flat, p, 3, 2, 10, 10,
                                                           route))
@@ -485,13 +492,12 @@ def test_msm_engine_kernels_identity_cases(method, cuda_device):  # noqa: F811
 
 def test_msm_engine_launch_counters(cuda_device):  # noqa: F811
     sc, pts = _adversarial(BN254_G1, 64, seed=5)
-    names = {"pippenger": "pippenger_launches",
-             "pippenger-u4": "pippenger_u4_launches",
-             "window": "window_launches", "lane": "lane_launches"}
+    names = {"pippenger": "msm_pippenger", "pippenger-u4": "msm_pippenger_u4",
+             "window": "msm_window", "lane": "msm_lane"}
     for method, counter in names.items():
-        before = getattr(cuda_msm, counter)
+        before = _launched(counter)[counter]
         _run(lambda s, P, c: msm(s, P, c, method), BN254_G1, sc, pts, cuda_device)
-        assert getattr(cuda_msm, counter) == before + 1
+        assert _launched(counter)[counter] == before + 1
 
 
 @pytest.mark.parametrize("engine", ["stage", "fourstep"])
@@ -499,17 +505,18 @@ def test_msm_engine_launch_counters(cuda_device):  # noqa: F811
 def test_ntt_kernels_batched(engine, log_n, cuda_device):  # noqa: F811
     """A (B, n, 8) batch is one launch of each kernel and equals B separate
     transforms and the plain batched version, forward and inverse."""
-    from mira_tpu_torch.ops import cuda_ntt, ntt
+    from mira_tpu_torch.ops import ntt
 
     p = BN254_FR
     rows = torch.stack([_ntt_inputs(1 << log_n, 40 + b, cuda_device)[1]
                         for b in range(5)])
     for inverse in (False, True):
-        before = (cuda_ntt.fourstep_launches, cuda_ntt.stage_launches)
+        before = _launched("ntt_fourstep", "ntt_stage")
         got = ntt.ntt(rows, p, inverse, engine=engine)
-        after = (cuda_ntt.fourstep_launches, cuda_ntt.stage_launches)
-        assert after[0] - before[0] == (engine == "fourstep")
-        assert after[1] - before[1] == (log_n if engine == "stage" else 0)
+        after = _launched("ntt_fourstep", "ntt_stage")
+        assert after["ntt_fourstep"] - before["ntt_fourstep"] == (engine == "fourstep")
+        assert after["ntt_stage"] - before["ntt_stage"] == (
+            log_n if engine == "stage" else 0)
         torch.cuda.synchronize()
         assert torch.equal(got, ntt.ntt_plain(rows, p, inverse))
         for b in range(rows.shape[0]):
@@ -619,12 +626,12 @@ def test_msm_kernels_at_2_17(curve, cuda_device):  # noqa: F811
 def test_msm_kernel_launch_counters(cuda_device):  # noqa: F811
     """One MSM is one count, whatever the number of its C calls."""
     sc, pts = _adversarial(BN254_G1, 64, seed=6)
-    before = (cuda_msm.launches, cuda_msm.fixed_launches)
+    before = _launched("msm_bucket", "msm_fixed")
     _, s, P = _run(msm, BN254_G1, sc, pts, cuda_device)
     cuda_msm.msm_fixed_cuda(s, cuda_msm.fixed_table_cuda(P, BN254_G1, 5),
                             BN254_G1, 5)
-    assert (cuda_msm.launches, cuda_msm.fixed_launches) == (before[0] + 1,
-                                                            before[1] + 1)
+    assert _launched("msm_bucket", "msm_fixed") == {
+        "msm_bucket": before["msm_bucket"] + 1, "msm_fixed": before["msm_fixed"] + 1}
 
 
 # -- kernels 4 and 5: chunks of bases, launch counters, scratch ---------------
@@ -654,18 +661,17 @@ def test_pippenger_kernels_at_chunk_borders(curve, signed, n, cuda_device):  # n
 
 
 def test_pippenger_kernel_counts_as_itself(cuda_device):  # noqa: F811
-    """A kernel-4 call moves `pippenger_launches` alone and a kernel-5 call
-    `pippenger_u4_launches` alone, over several chunks: never the counts of
-    the table build and the fixed-base MSM whose code they run."""
+    """A kernel-4 call moves `msm_pippenger` alone and a kernel-5 call
+    `msm_pippenger_u4` alone, over several chunks: never the counts of the
+    table build and the fixed-base MSM whose code they run."""
     sc, pts = _adversarial(BN254_G1, 300, seed=9)
-    names = ("launches", "fixed_launches", "table_launches", "pippenger_launches",
-             "pippenger_u4_launches")
-    for signed, moved in ((True, "pippenger_launches"),
-                          (False, "pippenger_u4_launches")):
-        before = {k: getattr(cuda_msm, k) for k in names}
+    names = ("msm_bucket", "msm_fixed", "fixed_table", "msm_pippenger",
+             "msm_pippenger_u4")
+    for signed, moved in ((True, "msm_pippenger"), (False, "msm_pippenger_u4")):
+        before = _launched(*names)
         _run(lambda s, P, c: cuda_msm.msm_pippenger_cuda(s, P, c, signed, chunk=128),
              BN254_G1, sc, pts, cuda_device)
-        after = {k: getattr(cuda_msm, k) for k in names}
+        after = _launched(*names)
         assert {k: after[k] - before[k] for k in names} == {
             k: int(k == moved) for k in names}
 
@@ -717,23 +723,21 @@ def test_pippenger_kernel_scratch_is_one_chunks(cuda_device):  # noqa: F811
 
 
 # -- kernels 6 and 7: kernel 5's and kernel 1's C calls, kernel 7's parts -----
-MSM_COUNTERS = ("launches", "fixed_launches", "table_launches", "pippenger_launches",
-                "pippenger_u4_launches", "window_launches", "lane_launches")
+MSM_COUNTERS = ("msm_bucket", "msm_fixed", "fixed_table", "msm_pippenger",
+                "msm_pippenger_u4", "msm_window", "msm_lane")
 
 
-@pytest.mark.parametrize("window, moved", [(4, "window_launches"),
-                                           (1, "lane_launches")])
+@pytest.mark.parametrize("window, moved", [(4, "msm_window"), (1, "msm_lane")])
 def test_lane_kernels_count_as_themselves(window, moved, cuda_device):  # noqa: F811
-    """A kernel-6 call moves `window_launches` alone and a kernel-7 call
-    `lane_launches` alone, kernel 7 also over five parts of its bases:
-    never the counts of kernels 1, 3, 3b, 4 or 5, whose C calls they
-    make."""
+    """A kernel-6 call moves `msm_window` alone and a kernel-7 call
+    `msm_lane` alone, kernel 7 also over five parts of its bases: never the
+    counts of kernels 1, 3, 3b, 4 or 5, whose C calls they make."""
     sc, pts = _adversarial(BN254_G1, 300, seed=11)
     for records in (cuda_msm.BUCKET_MAX_RECORDS, 4096):
-        before = {k: getattr(cuda_msm, k) for k in MSM_COUNTERS}
+        before = _launched(*MSM_COUNTERS)
         _run(lambda s, P, c: cuda_msm.msm_lane_cuda(s, P, c, window, records),
              BN254_G1, sc, pts, cuda_device)
-        after = {k: getattr(cuda_msm, k) for k in MSM_COUNTERS}
+        after = _launched(*MSM_COUNTERS)
         assert {k: after[k] - before[k] for k in MSM_COUNTERS} == {
             k: int(k == moved) for k in MSM_COUNTERS}
 

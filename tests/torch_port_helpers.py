@@ -15,6 +15,23 @@ if _workers > 1:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // _workers))
 
 
+def k17_trivial_pp():
+    """Public parameters of the smallest IVC the tests build: the trivial
+    step circuit on both curves at k=17 (the step-folding circuit needs
+    ~100k rows), mock 2^21 keys, on the CPU."""
+    from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
+    from mira_tpu_torch.ivc.public_params import CircuitSide, PublicParams
+    from mira_tpu_torch.ivc.step_circuit import TrivialCircuit
+    from mira_tpu_torch.ops.mock_commitment import MockCommitmentKey
+
+    return PublicParams(
+        CircuitSide(TrivialCircuit(arity=1),
+                    MockCommitmentKey(BN254_G1, 21, b"bn256", "cpu"), 17),
+        CircuitSide(TrivialCircuit(arity=1),
+                    MockCommitmentKey(GRUMPKIN, 21, b"grumpkin", "cpu"), 17),
+        BN254_G1, GRUMPKIN)
+
+
 def same(a, b):
     """Equality of host values across the two packages (field elements,
     points, Gt tuples, dataclasses of them, lists): compared as plain data,
