@@ -163,7 +163,8 @@ POSEIDON_ROUTE_TIMED = 16  # tree levels of up to 2^16 hashes timed on both rout
 # gate's) does not vanish there, so Z would not divide G - F(alpha) L_0.
 PG_TRACES = 3
 # the kernels the two IVC paths run
-MSM_PATH_KERNELS = ("msm_bucket", "msm_fixed", "fixed_table", "fold_eval")
+MSM_PATH_KERNELS = ("msm_bucket", "msm_fixed", "fixed_table", "fold_eval",
+                    "field_lincomb")
 MESH_STEPS = 2  # fold_step(mesh=...) of the mesh path
 # the generic-base engines of ops/msm.py `msm` besides the bucket MSM: the
 # kernel's name in the counts, its source and the TPU kernel it replaces
@@ -204,6 +205,9 @@ INT32_MAD_PER_S = 16.75e12
 # One CIOS Montgomery product of csrc/field.cuh: 8 x (8 + 8 + 1) = 136
 # 32x32->64-bit multiply-adds, two int32 mad (lo, hi) each.
 MADS_PER_PRODUCT = 272
+# a Montgomery reduction alone (a product by the raw integer 1): 8 x (8 + 1)
+# 32x32-bit products, two multiply-adds each
+MADS_PER_REDUCTION = 144
 MADD_PRODUCTS = 10  # field products of one mixed XYZZ addition (xyzz_madd)
 ADD_PRODUCTS = 14  # of one full XYZZ addition (xyzz_add)
 JAC_ADD_PRODUCTS = 16  # of one Jacobian addition (jac_add)
@@ -1447,6 +1451,61 @@ def check_fold_eval(torch, dev, rng, S, ranges=None):
     return (ev, ops, ops_t, n_regs, consts, w1, w2, ch, jm, js)
 
 
+def lincomb_timings(rng, ivc) -> list:
+    """csrc/field_lincomb.cu at the shapes of the IVC's fold steps, on each
+    side: the cross-term combine (J = d inputs, K = d - 1 outputs), the
+    plain form of one cross term (`to_plain`: J = K = 1, coefficient 1),
+    each witness round's fold (J = 2: coefficients 1 and r) and E's
+    (J = d + 1: 1, r, ..., r^d), each against its plain version (equal
+    words), its bound, its device time and its launches a call.  Products
+    count the coefficients other than 0 and 1 (the kernel adds a row for a
+    coefficient of 1); a plain output costs one Montgomery reduction."""
+    from mira_tpu_torch.ops import field_lincomb as fl
+    from mira_tpu_torch.utils import tracing
+
+    out = []
+    for side, ctx, S in (("primary", ivc.primary, ivc.pp.primary.S),
+                         ("secondary", ivc.secondary, ivc.pp.secondary.S)):
+        W = ctx.relaxed_trace.W
+        p = W.lf.modulus
+        d = S.get_degree_for_folding() - 1
+        n_E = W.E.shape[0]
+        r = int(rng.integers(1, 1 << 62)) % p
+        coefs = [int(rng.integers(2, 1 << 62)) for _ in range(d * d)]
+        shapes = [("combine", n_E, [coefs[k * d:(k + 1) * d] for k in range(d - 1)], False),
+                  ("to_plain", n_E, [[1]], True)]
+        shapes += [(f"witness_round_{i}", w.shape[0], [[1, r]], False)
+                   for i, w in enumerate(W.W)]
+        shapes.append(("E_fold", n_E, [[pow(r, k, p) for k in range(d + 1)]], False))
+        for what, n, cs, plain in shapes:
+            xs = [_random_plain(rng, n, W.E.device) for _ in cs[0]]
+
+            def run():
+                return fl.lincomb(p, xs, cs, plain=plain)
+
+            before = tracing.counts().get("field_lincomb", 0)
+            got = run()
+            launches = tracing.counts().get("field_lincomb", 0) - before
+            want, plain_ms = timed_once(lambda: fl.lincomb_plain(p, xs, cs, plain=plain))
+            err = max(words_err(a, b) for a, b in zip(got, want))
+            if err:
+                raise AssertionError(f"field_lincomb {side} {what}: kernel != plain")
+            K, J = len(cs), len(xs)
+            products = n * (sum(c % p not in (0, 1) for row in cs for c in row)
+                            + (K * MADS_PER_REDUCTION / MADS_PER_PRODUCT if plain else 0))
+            entry = {"side": side, "what": what, "n": n, "J": J, "K": K,
+                     "plain_out": plain, "ms": timed_cuda(run, 10),
+                     "device_ms": device_ms(run, 10), "plain_ms": plain_ms,
+                     "launches_per_call": launches, "max_abs_err": err,
+                     **bound((J + K) * n * 32, products)}
+            log(f"field_lincomb {side} {what} n={n} J={J} K={K}"
+                f"{' plain' if plain else ''}: {entry['ms']:.4f} ms (device "
+                f"{entry['device_ms']:.4f}), bound {entry['bound_ms']:.4f} ms by "
+                f"{entry['bound_by']}, plain {plain_ms:.1f} ms, {launches} launch(es)")
+            out.append(entry)
+    return out
+
+
 def _challenge_rows(lf, js, ch1, ch2, scalars, dev):
     from mira_tpu_torch.polynomial.fold_evaluator import _eval_scalar
 
@@ -2411,7 +2470,8 @@ def _mesh_steps(torch, mesh, pp, sc1, sc2, single, profile_dir):
     peak = torch.cuda.max_memory_allocated()
     log("host span tree of the mesh fold steps:")
     log(tracing.report(min_runtime=0.01))
-    require_launched(counts, ("msm_pippenger", "fold_eval"), "the mesh path")
+    require_launched(counts, ("msm_pippenger", "fold_eval", "field_lincomb"),
+                     "the mesh path")
     if counts["msm_fixed"] or counts["fixed_table"]:
         raise AssertionError(f"the mesh steps built or used a multiples table: {counts}")
     if profile_dir:
@@ -2793,6 +2853,22 @@ def _paths(args, torch, dev, rng, card, prev, t_all, ts_pool, ts_job, t_ts,
         "library_ms": None,
         "shape": f"N={head['n']} {head['curve']}, w={head['window']}", "at": tab_at,
     })
+    lincomb_at = lincomb_timings(rng, ivc)
+    kernels.append({
+        "name": "field_lincomb", "route": "cuda",
+        "source": "mira_tpu_torch/csrc/field_lincomb.cu",
+        "replaces": "none (mira_tpu/nifs/vanilla.py:92 _combine_slices_sat_jit, "
+                    "mira_tpu/plonk/structure.py:802 _witness_fold_jit: XLA-fused)",
+        "launches": counts["field_lincomb"],
+        "max_abs_err": max(a["max_abs_err"] for a in lincomb_at),
+        "ms": lincomb_at[0]["ms"], "plain_ms": lincomb_at[0]["plain_ms"],
+        "device_ms": lincomb_at[0]["device_ms"],
+        "bound_ms": lincomb_at[0]["bound_ms"], "bound_by": lincomb_at[0]["bound_by"],
+        "library_ms": None,
+        "shape": f"the primary's cross-term combine, n=2^{K}, J={lincomb_at[0]['J']}, "
+                 f"K={lincomb_at[0]['K']}",
+        "at": lincomb_at,
+    })
     phase("kernel_timing", t0)
 
     # -- kernels 4-7: timings at the mesh path's widths, their paths ----------
@@ -2862,6 +2938,7 @@ def _paths(args, torch, dev, rng, card, prev, t_all, ts_pool, ts_job, t_ts,
             "at": at,
         })
     kernels[1]["launches_mesh"] = mesh_counts["fold_eval"]
+    kernels[4]["launches_mesh"] = mesh_counts["field_lincomb"]
     kernels[1]["launches_dryrun"] = dry_counts["fold_eval"]
     mesh_summary = {"step_s": mesh_secs, "single_step_s": step_secs,
                     "verify_s": mesh_verify,

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "mira_poseidon": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P],
     "mira_msm_pippenger_recode": [_P, _I, _I, _I, _P, _P],
     "mira_msm_pippenger_finish": [_I, _I, _P, _I, _I, _P, _P, _P, _P],
+    "mira_field_lincomb": [_I, _P, _I, _P],
 }
 
 

@@ -5,7 +5,8 @@ Cross terms: the homogeneous polynomial is evaluated at the interior fold
 points j = 1..d-1 by the fold evaluator (the kernel on the card) and the
 degree slices are recovered with the inverse Vandermonde, using the two
 satisfaction invariants (Q(0) = E, leading coefficient 0) as mira_tpu does;
-the combine runs as elementwise field ops on the witness device.
+the combine is one row-wise linear combination on the witness device
+(ops/field_lincomb.py, the kernel on the card).
 MIRA_FOLD_EVAL (or `_impl`) picks mira_tpu's other evaluators instead:
 "native", the native row VM and its combine on the host's cores, or "xla",
 the column evaluator.  With MIRA_DEBUG_SAT set, a prove first checks the
@@ -37,6 +38,7 @@ import torch
 from ..curves.host import AffinePoint, Tuple12
 from ..fields.host import field
 from ..fields.native64 import lincomb_mont
+from ..ops.field_lincomb import lincomb
 
 from ..plonk.structure import (
     NUM_CHALLENGE_BITS,
@@ -85,42 +87,24 @@ def _inv_vandermonde_inner(p: int, d: int):
                            for i in range(d - 1)], p)
 
 
-def _lincomb(lf, coefs: List[int], vecs):
-    """sum_j coefs[j] * vecs[j] on Montgomery words (lazy, one canon)."""
-    acc = None
-    for c, v in zip(coefs, vecs):
-        if not c:
-            continue
-        t = v * lf.lz_const(c, v.shape, v.t.device)
-        acc = t if acc is None else acc + t
-    return acc
-
-
 def combine_slices_sat(lf, evals, E):
     """T_k = sum_j invM[k][j] * (Q_j - E), k = 1..d-1, plus T_d = 0 (port of
-    mira_tpu's `_combine_slices_sat_jit`)."""
+    mira_tpu's `_combine_slices_sat_jit`): one `field_lincomb` over the
+    evaluations and E, whose coefficient -sum_j invM[k][j] folds the
+    subtraction in."""
     d = len(evals) + 1
-    invM = _inv_vandermonde_inner(lf.modulus, d)
-    diffs = [lf.lz(e) - lf.lz(E) for e in evals]
-    outs = []
-    for k in range(d - 1):
-        acc = _lincomb(lf, invM[k], diffs)
-        outs.append(lf.canon(acc) if acc is not None else lf.zero(E.shape[:-1], E.device))
-    outs.append(lf.zero(E.shape[:-1], E.device))
-    return outs
+    p = lf.modulus
+    invM = _inv_vandermonde_inner(p, d)
+    coefs = [list(invM[k]) + [-sum(invM[k])] for k in range(d - 1)]
+    return lincomb(p, [*evals, E], coefs) + [torch.zeros_like(E)]
 
 
 def combine_slices(lf, evals):
-    """T_k = sum_j invV[k][j] * Q_j, k = 1..d (port of `_combine_slices_jit`)."""
+    """T_k = sum_j invV[k][j] * Q_j, k = 1..d (port of `_combine_slices_jit`),
+    one `field_lincomb`."""
     d = len(evals) - 1
     invV = _inv_vandermonde(lf.modulus, d)
-    lz = [lf.lz(e) for e in evals]
-    outs = []
-    for k in range(1, d + 1):
-        acc = _lincomb(lf, invV[k], lz)
-        outs.append(lf.canon(acc) if acc is not None
-                    else lf.zero(evals[0].shape[:-1], evals[0].device))
-    return outs
+    return lincomb(lf.modulus, evals, [list(invV[k]) for k in range(1, d + 1)])
 
 
 def combine_slices_native(p: int, d: int, outs64, E, assume_sat: bool):

@@ -46,6 +46,7 @@ from ..curves.torch_curve import jacobian_ops
 from ..fields.limbs import ints_to_limbs, limb_field, limbs_to_ints
 from ..utils.tracing import fence, span
 from .cuda_msm import fixed_table, msm_fixed
+from .field_lincomb import to_plain
 from .msm import METHODS, encode_scalars, fixed_base_window, msm
 
 HTC = "svdw"  # hash-to-curve of the key files (mira_tpu's default)
@@ -301,21 +302,22 @@ class CommitmentKey:
 
     def commit_device_many(self, vectors, mesh=None, defer=False):
         """Commit several Montgomery vectors (the recurring cross-term
-        widths), decoding all results after the last MSM is queued.  With
-        defer=True, returns a zero-arg callable that decodes, so the caller
-        can do host work meanwhile.  With a mesh, each is a sharded
-        `commit_device` (no tables)."""
+        widths), decoding all results after the last MSM is queued; each
+        vector's plain form is one `field_lincomb` call (no host sync on
+        the card).  With defer=True, returns a zero-arg callable that
+        decodes, so the caller can do host work meanwhile.  With a mesh,
+        each is a sharded `commit_device` (no tables)."""
         if mesh is not None:
             pts = [self.commit_device(v, mesh=mesh) for v in vectors]
             return (lambda: pts) if defer else pts
-        lf = limb_field(self.curve.scalar_modulus)
+        p = self.curve.scalar_modulus
         outs = []
         with span("ct_msm_dispatch"):
             for v in vectors:
                 if v.shape[0] > len(self):
                     raise ValueError(
                         f"input too long: {v.shape[0]} > key size {len(self)}")
-                outs.append(self._msm_device(lf.to_plain(v)))
+                outs.append(self._msm_device(to_plain(p, v)))
 
         def _decode():
             with span("ct_decode"):

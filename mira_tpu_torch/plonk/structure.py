@@ -39,6 +39,7 @@ from ..fields.limbs import (
     limb_field,
     words_to_ints,
 )
+from ..ops.field_lincomb import lincomb
 from ..table.circuit import PermutationMatrix
 from ..polynomial.evaluator import ColumnEvaluator, EvalDomain, eval_rows_host
 from ..utils.tracing import span
@@ -704,39 +705,24 @@ class RelaxedPlonkWitness:
 
     def fold(self, W2: PlonkWitness, cross_terms: List, r: int,
              mesh=None) -> "RelaxedPlonkWitness":
-        """W' = W1 + r*W2; E' = E + sum_k r^k T_k, as elementwise field ops
-        on the witness device.  With a mesh, each rank folds its block of
-        the rows of every array, and the blocks are gathered."""
-        lf = self.lf
-        p = lf.modulus
-        rpows = []
-        rpow = r % p
-        for _ in cross_terms:
-            rpows.append(rpow)
-            rpow = rpow * r % p
+        """W' = W1 + r*W2; E' = E + sum_k r^k T_k, each array one row-wise
+        linear combination on the witness device (ops/field_lincomb.py, one
+        launch of the kernel on the card).  With a mesh, each rank folds its
+        block of the rows of every array, and the blocks are gathered."""
+        p = self.lf.modulus
+        r %= p
+        rpows = [pow(r, k, p) for k in range(len(cross_terms) + 1)]  # 1, r, r^2, ...
 
         def fold_E(E1, *ts):
-            E = lf.lz(E1)
-            for t, rp in zip(ts, rpows):
-                E = E + lf.lz(t) * lf.lz_const(rp, t.shape[:-1], t.device)
-            return lf.canon(E)
+            return lincomb(p, [E1, *ts], [rpows])[0]
 
         def rlc(a, b):
-            return _rlc(lf, a, b, r % p)
+            return lincomb(p, [a, b], [rpows[:2]])[0]
 
-        if mesh is None:
-            return RelaxedPlonkWitness(
-                lf, [lf.rowwise(rlc, a, b) for a, b in zip(self.W, W2.W)],
-                lf.rowwise(fold_E, self.E, *cross_terms))
+        rows = mesh.rowwise if mesh is not None else (lambda fn, *ts: fn(*ts))
         return RelaxedPlonkWitness(
-            lf, [mesh.rowwise(rlc, a, b) for a, b in zip(self.W, W2.W)],
-            mesh.rowwise(fold_E, self.E, *cross_terms))
-
-
-def _rlc(lf, a: torch.Tensor, b: torch.Tensor, r: int) -> torch.Tensor:
-    """a + r*b on Montgomery words."""
-    rb = lf.lz(b) * lf.lz_const(r, b.shape[:-1], b.device)
-    return lf.canon(lf.lz(a) + rb)
+            self.lf, [rows(rlc, a, b) for a, b in zip(self.W, W2.W)],
+            rows(fold_E, self.E, *cross_terms))
 
 
 @dataclasses.dataclass

@@ -43,7 +43,7 @@ import torch
 # the kernels' counters: one count per C entry call
 KERNELS = ("msm_bucket", "msm_fixed", "fixed_table", "fold_eval", "ntt_fourstep",
            "ntt_stage", "poseidon", "msm_pippenger", "msm_pippenger_u4", "msm_window",
-           "msm_lane")
+           "msm_lane", "field_lincomb")
 HOST_SYNC = "host_sync"
 # the text of torch's warning in sync debug mode "warn"
 SYNC_WARNING = "called a synchronizing CUDA operation"

@@ -5,6 +5,7 @@ runs where only the port is installed:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import ctypes
 import random
 
 import numpy as np
@@ -15,7 +16,7 @@ from mira_tpu_torch.convert import msm_reference
 from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint
 from mira_tpu_torch.fields.params import BN254_FQ, BN254_FR
 from mira_tpu_torch.curves.torch_curve import jacobian_ops
-from mira_tpu_torch.fields.limbs import limb_field
+from mira_tpu_torch.fields.limbs import limb_field, words_to_ints
 from mira_tpu_torch.ops import cuda_msm
 from mira_tpu_torch.ops.msm import (
     encode_scalars,
@@ -832,3 +833,157 @@ def test_checkpoint_round_trip_of_a_cuda_ivc(tmp_path, cuda_device):  # noqa: F8
         assert a.relaxed_trace.U == b.relaxed_trace.U
         assert torch.equal(a.relaxed_trace.W.E, b.relaxed_trace.W.E)
     resumed.verify(strict=True)
+
+
+def _canonical_rows(p, n, seed, dev):
+    """(n, 8) Montgomery words drawn below 2^252 < p (each one a field
+    element), with the Montgomery forms of 0, 1 and p - 1 in rows that move
+    with the seed."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+    w[:, 7] &= 0x0FFFFFFF
+    x = torch.from_numpy(w.view(np.int32)).to(dev)
+    edges = limb_field(p).encode([0, 1, p - 1], dev)
+    for i in range(3):
+        x[(seed * 7919 + 104729 * i) % n] = edges[i]
+    return x
+
+
+LINCOMB_SHAPES = [(1, 2), (2, 3), (3, 4), (4, 5), (5, 6), (6, 7), (7, 8), (7, 2),
+                  (1, 8)]
+
+
+@pytest.mark.parametrize("p", [BN254_FQ, BN254_FR], ids=["fq", "fr"])
+@pytest.mark.parametrize("K, J", LINCOMB_SHAPES)
+@pytest.mark.parametrize("n", [1, (1 << 17) - 3, 1 << 17])
+def test_field_lincomb_kernel_matches_plain_and_host(p, K, J, n, cuda_device):  # noqa: F811
+    """csrc/field_lincomb.cu == its plain version on every row, Montgomery
+    and plain outputs (one launch each), with coefficients 0, 1 and p - 1
+    among them (the combines at d = 5 and 6 are K, J = 4, 5 and 5, 6); the
+    plain outputs == `LimbField.to_plain` of the Montgomery ones; sampled
+    rows (the edge values' among them) == host integers."""
+    from mira_tpu_torch.ops import field_lincomb as fl
+
+    lf = limb_field(p)
+    xs = [_canonical_rows(p, n, 10 * J + j, cuda_device) for j in range(J)]
+    rng = random.Random(K * 100 + J)
+    cs = [[rng.randrange(p) for _ in range(J)] for _ in range(K)]
+    cs[0][0], cs[-1][-1] = 0, p - 1
+    if J > 1:
+        cs[0][1] = 1
+    before = tracing.counts().get("field_lincomb", 0)
+    outs = fl.lincomb(p, xs, cs)
+    plains = fl.lincomb(p, xs, cs, plain=True)
+    assert tracing.counts().get("field_lincomb", 0) == before + 2
+    want, want_plain = fl.lincomb_plain(p, xs, cs), fl.lincomb_plain(p, xs, cs, plain=True)
+    torch.cuda.synchronize()
+    for o, q, wo, wq in zip(outs, plains, want, want_plain):
+        assert torch.equal(o, wo) and torch.equal(q, wq)
+        assert torch.equal(q, lf.to_plain(o))
+    rows = sorted({0, n - 1, n // 2} | {(10 * J + j) * 7919 % n for j in range(J)}
+                  | {((10 * J + j) * 7919 + 104729 * i) % n for j in range(J)
+                     for i in range(3)})
+    vals = [lf.decode(x[rows]) for x in xs]
+    for k, row in enumerate(cs):
+        host = [sum(c * v[i] for c, v in zip(row, vals)) % p for i in range(len(rows))]
+        assert lf.decode(outs[k][rows]) == host
+        assert words_to_ints(plains[k][rows]) == host
+
+
+@pytest.mark.parametrize("p", [BN254_FQ, BN254_FR], ids=["fq", "fr"])
+def test_field_lincomb_kernel_copies_unaligned_inputs(p, cuda_device):  # noqa: F811
+    """Non-contiguous and misaligned inputs are copied: one launch, equal to
+    the plain version."""
+    from mira_tpu_torch.ops import field_lincomb as fl
+
+    before = tracing.counts().get("field_lincomb", 0)
+    xs = [_canonical_rows(p, 1001, 20 + j, cuda_device) for j in range(6)]
+    xs[1] = _canonical_rows(p, 1002, 9, cuda_device)[1:]  # 32-byte rows at an odd offset
+    xs[2] = _canonical_rows(p, 2002, 8, cuda_device)[::2]  # strided
+    rng = random.Random(17)
+    cs = [[rng.randrange(p) for _ in range(6)] for _ in range(5)]
+    got = fl.lincomb(p, xs, cs)
+    assert tracing.counts().get("field_lincomb", 0) == before + 1
+    want = fl.lincomb_plain(p, xs, cs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("p", [BN254_FQ, BN254_FR], ids=["fq", "fr"])
+@pytest.mark.parametrize("n", [1, (1 << 17) - 3, 1 << 17])
+def test_field_lincomb_to_plain_matches_limb_field(p, n, cuda_device):  # noqa: F811
+    """`to_plain` on the card (one launch) == `LimbField.to_plain`, the
+    edge values 0, 1 and p - 1 among the rows."""
+    from mira_tpu_torch.ops import field_lincomb as fl
+
+    x = _canonical_rows(p, n, 5, cuda_device)
+    before = tracing.counts().get("field_lincomb", 0)
+    got = fl.to_plain(p, x)
+    assert tracing.counts().get("field_lincomb", 0) == before + 1
+    assert torch.equal(got, limb_field(p).to_plain(x))
+
+
+def test_field_lincomb_kernel_refuses(cuda_device):  # noqa: F811
+    """A field the kernel lacks, inputs on the card and on the host, and a
+    parameter block of another size are refused."""
+    from mira_tpu_torch import _build
+    from mira_tpu_torch.ops import field_lincomb as fl
+
+    x = torch.zeros(4, 8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        fl.lincomb(2**61 - 1, [x], [[1]])
+    with pytest.raises(ValueError):
+        fl.lincomb(BN254_FR, [x, x.cpu()], [[1, 1]])
+    args = fl.pack_args(BN254_FR, [[1]])
+    args.n = 4
+    args.inputs[0] = x.data_ptr()
+    args.outs[0] = x.data_ptr()
+    assert _build.lib().mira_field_lincomb(
+        1, ctypes.addressof(args), ctypes.sizeof(args) - 8,
+        _build.stream_ptr(cuda_device)) != 0
+
+
+def test_fold_step_combine_and_witness_fold_make_no_host_sync(monkeypatch, cuda_device):  # noqa: F811
+    """One k=17 fold step of the benchmark's IVC (Poseidon on BN254, trivial
+    on Grumpkin, real 2^21 keys from the checkout's .cache/ck, made there on
+    first use) under MIRA_TRACE=collect, after two warm steps (the cross-term
+    widths' tables exist): no host sync is charged to `cross_term_combine`,
+    `witness_fold` or `ct_msm_dispatch`; the combine is one `field_lincomb`
+    call a side, the witness fold one a witness round and one for E, and
+    each cross-term MSM's scalars one."""
+    import os
+
+    from mira_tpu_torch.ivc.ivc import IVC
+    from mira_tpu_torch.ivc.public_params import CircuitSide, PublicParams
+    from mira_tpu_torch.ivc.step_circuit import TrivialCircuit
+    from mira_tpu_torch.ops.commitment import CommitmentKey
+    from mira_tpu_torch.workloads.poseidon import PoseidonStepCircuit
+
+    monkeypatch.setenv("MIRA_TRACE", "collect")
+    cache = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         ".cache", "ck")
+    keys = [CommitmentKey.load_or_setup_cache(c, 21, label, cache_dir=cache,
+                                              device=cuda_device)
+            for c, label in ((BN254_G1, "bn256"), (GRUMPKIN, "grumpkin"))]
+    sc1, sc2 = PoseidonStepCircuit(BN254_G1.scalar_modulus, 1), TrivialCircuit(arity=1)
+    pp = PublicParams(CircuitSide(sc1, keys[0], 17), CircuitSide(sc2, keys[1], 17),
+                      BN254_G1, GRUMPKIN)
+    ivc = IVC(pp, sc1, [0], sc2, [0])
+    try:
+        for _ in range(2):
+            ivc.fold_step()
+        torch.cuda.synchronize()
+        tracing.reset()
+        ivc.fold_step()
+        torch.cuda.synchronize()
+        by_span = tracing.counts_by_span()
+        tracing.reset()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for name in ("cross_term_combine", "witness_fold", "ct_msm_dispatch"):
+        assert by_span.get(name, {}).get(tracing.HOST_SYNC, 0) == 0, (name, by_span)
+    rounds = [len(ivc.primary.relaxed_trace.W.W), len(ivc.secondary.relaxed_trace.W.W)]
+    assert by_span["cross_term_combine"].get("field_lincomb") == 2
+    assert by_span["witness_fold"].get("field_lincomb") == sum(r + 1 for r in rounds)
+    assert by_span["ct_msm_dispatch"].get("msm_fixed") == 9
+    assert by_span["ct_msm_dispatch"].get("field_lincomb") == 9
+    ivc.verify(strict=True)

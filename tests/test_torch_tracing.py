@@ -291,7 +291,7 @@ def test_kernel_wrappers_count_the_named_kernels():
     once, and no module keeps a launch counter of its own."""
     named = []
     for path in ("ops/cuda_msm.py", "ops/cuda_ntt.py", "ops/cuda_poseidon.py",
-                 "polynomial/fold_evaluator.py"):
+                 "polynomial/fold_evaluator.py", "ops/field_lincomb.py"):
         with open(os.path.join(PACKAGE, path)) as f:
             src = f.read()
         for call in re.findall(r"tracing\.count\(([^)]*)\)", src):
