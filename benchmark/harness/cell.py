@@ -25,6 +25,12 @@ def load_module(path: str, name: str):
     return mod
 
 
+def ck_k(cfg: dict, side: str) -> int:
+    """log2 of a side's key size: the side's own `ck_k`, else the
+    configuration's."""
+    return cfg[side].get("ck_k", cfg["ck_k"])
+
+
 def read_json(path: str):
     with open(path) as f:
         return json.load(f)

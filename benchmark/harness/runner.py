@@ -6,6 +6,9 @@ The traffic mix names its unit of work:
 - `proof`: a fresh IVC from a seeded z0 (its zero step), `folds_per_proof`
   fold steps, the program's strict verify; a proof the program refuses
   counts as failed.
+A system draws its own z0 where it defines `draw_z0(rng)` (a start state
+that is not a random field element, such as a tree's root), else one field
+element a side is drawn here.
 Units run whole, each ending in torch.cuda.synchronize().  With --trace 1
 the program's spans are on (MIRA_SYNC_SPANS=1), and the first
 `profile_units` units of the window run under torch.profiler.
@@ -13,6 +16,7 @@ the program's spans are on (MIRA_SYNC_SPANS=1), and the first
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import random
@@ -24,7 +28,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from . import guard, window
-from .cell import Cell
+from .cell import Cell, ck_k
 from .profile import WINDOW, Trace
 
 
@@ -50,11 +54,18 @@ def draw_z0(rng: random.Random, moduli) -> dict:
     return {"primary": [rng.randrange(moduli[0])], "secondary": [rng.randrange(moduli[1])]}
 
 
+def start_state(system, rng: random.Random) -> dict:
+    """z0 of a new IVC: the system's own draw where it has one."""
+    draw = getattr(system, "draw_z0", None)
+    return draw(rng) if draw is not None else draw_z0(rng, system.moduli())
+
+
 class Faults:
     """Faults planted in the program for the control and fault runs
     (`--fault`), never in the benchmark's own runs."""
 
-    NAMES = ("none", "drop_cross_term", "unchanged_step", "altered_answer", "altered_z")
+    NAMES = ("none", "drop_cross_term", "unchanged_step", "altered_answer", "altered_z",
+             "altered_gt")
 
     def __init__(self, name: str, seed: int):
         if name not in self.NAMES:
@@ -86,6 +97,11 @@ class Faults:
             E[row, 0] = E[row, 0] ^ 1
         elif self.name == "altered_z":  # the primary z_i, one bit
             ivc.primary.z_i = [ivc.primary.z_i[0] ^ 1] + list(ivc.primary.z_i[1:])
+        elif self.name == "altered_gt":  # the primary Gt accumulator times a Gt element
+            from mira_tpu_torch.curves.host import Tuple12
+
+            U = ivc.primary.relaxed_trace.U
+            U.gt_element = U.gt_element.mul(Tuple12.generator(U.gt_element.F))
 
 
 def err(line: str):
@@ -139,7 +155,7 @@ def run(args, root: str, t_start: float, data_dirs=None):
             folds_profiled[0] += 1
 
     if unit == "fold_step":
-        z0 = draw_z0(rng, system.moduli())
+        z0 = start_state(system, rng)
         ivc = system.new_ivc(z0)
         for _ in range(traffic["warm_units"]):
             fold(ivc)
@@ -176,10 +192,10 @@ def run(args, root: str, t_start: float, data_dirs=None):
             return ivc, not refused
 
         for _ in range(traffic["warm_units"]):
-            prove(draw_z0(rng, system.moduli()), False)
+            prove(start_state(system, rng), False)
 
         def one(i):
-            z0 = draw_z0(rng, system.moduli())
+            z0 = start_state(system, rng)
             ivc, ok = prove(z0, True)
             failed[0] += int(not ok)
             proofs.append((z0, [list(ivc.primary.z_i), list(ivc.secondary.z_i)], ivc.step))
@@ -292,7 +308,7 @@ def _make_keys(system, cfg):
     for side in ("primary", "secondary"):
         s = cfg[side]
         if s["key"] != "mock":
-            keys.ensure_key(decider.CURVES[s["curve"]], s["key_label"], cfg["ck_k"],
+            keys.ensure_key(decider.CURVES[s["curve"]], s["key_label"], ck_k(cfg, side),
                             system.key_file(side))
 
 
@@ -328,14 +344,21 @@ def _profiled_unit(one, i, first, last, state):
 
 
 def check(system, ref, cell, state, unit, trace_on) -> Dict[str, tuple]:
-    """Named (number, limit) pairs; every limit is 0: the comparison is exact."""
+    """Named (number, limit) pairs; every limit is 0: the comparison is exact.
+    A reference whose `z_after` takes `inputs` gets what the system fed the
+    judged IVC's steps (`system.step_inputs(ivc)`); one that defines
+    `decide_more(ivc, system, cfg)` adds its configuration's own counts."""
     from reference import decider
 
     cfg = cell.config
     moduli = system.moduli()
+    judged = state["ivc"] if unit == "fold_step" else state["kept"][1]
+    extra = {}
+    if "inputs" in inspect.signature(ref.z_after).parameters:
+        extra["inputs"] = system.step_inputs(judged)
 
     def z_after(side, z0, steps):
-        return ref.z_after(cfg, moduli, side, z0, steps)
+        return ref.z_after(cfg, moduli, side, z0, steps, **extra)
 
     keys = {}
     for side in ("primary", "secondary"):
@@ -343,7 +366,7 @@ def check(system, ref, cell, state, unit, trace_on) -> Dict[str, tuple]:
         curve = decider.CURVES[s["curve"]]
         if s["key"] == "mock":
             keys[side] = decider.Key(curve, mock_label=s["key_label"].encode(),
-                                     mock_k=cfg["ck_k"])
+                                     mock_k=ck_k(cfg, side))
         else:
             import numpy as np
 
@@ -363,6 +386,8 @@ def check(system, ref, cell, state, unit, trace_on) -> Dict[str, tuple]:
         out["proofs_refused"] = (state["failed"][0], 0)
         z0, ivc = state["kept"]
         found = decider.decide(ivc, z0, fp, z_after, keys, cfg["ro"], cfg["structure"])
+    if hasattr(ref, "decide_more"):
+        found.update(ref.decide_more(judged, system, cfg))
     for k, v in found.items():
         out[k] = (v, 0)
     return out

@@ -12,6 +12,7 @@ benchmark made.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 
 import numpy as np
@@ -95,32 +96,51 @@ def _field_params(p: int):
     return fparams, as_bytes[0], as_bytes[1], s
 
 
-def make_rows(curve: Curve, label: bytes, n: int) -> np.ndarray:
-    """The first n rows of the key, (n, 2, 16) uint32 16-bit limbs."""
+def make_rows(curve: Curve, label: bytes, n: int, start: int = 0) -> np.ndarray:
+    """Rows start..n-1 of the key, (n - start, 2, 16) uint32 16-bit limbs,
+    from their slice of the SHAKE-256 stream."""
     lib = library("keygen")
     u8p, u64p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint64)
-    lib.mira_keygen.argtypes = [u8p, ctypes.c_size_t, ctypes.c_size_t, u64p, u8p, u8p,
-                                ctypes.c_int, u64p, u8p, ctypes.c_size_t, u64p, ctypes.c_int]
-    lib.mira_keygen.restype = None
+    lib.mira_keygen_mapped.argtypes = [u8p, ctypes.c_size_t, u64p, u8p, u8p, ctypes.c_int,
+                                       u64p, u8p, ctypes.c_size_t, u64p, ctypes.c_int]
+    lib.mira_keygen_mapped.restype = None
     fparams, q_bytes, q12_bytes, s = _field_params(curve.p)
     svdw = np.concatenate([_u64x4(v) for v in (*svdw_constants(curve.p, curve.b), curve.b)])
     dst = np.frombuffer(f"from_uniform_bytes-{CURVE_IDS[curve.name]}_XMD:SHA-256_SVDW_RO_"
                         .encode(), dtype=np.uint8).copy()
-    lab = np.frombuffer(label, dtype=np.uint8).copy()
-    out = np.empty((n, 2, 4), dtype="<u8")
-    lib.mira_keygen(lab.ctypes.data_as(u8p), len(lab), n, fparams.ctypes.data_as(u64p),
-                    q_bytes.ctypes.data_as(u8p), q12_bytes.ctypes.data_as(u8p), s,
-                    svdw.ctypes.data_as(u64p), dst.ctypes.data_as(u8p), len(dst),
-                    out.ctypes.data_as(u64p), os.cpu_count() or 4)
-    return out.view("<u2").astype(np.uint32).reshape(n, 2, 16)
+    stream = np.frombuffer(hashlib.shake_256(label).digest(32 * n), dtype=np.uint8,
+                           offset=32 * start)
+    out = np.empty((n - start, 2, 4), dtype="<u8")
+    lib.mira_keygen_mapped(stream.ctypes.data_as(u8p), n - start, fparams.ctypes.data_as(u64p),
+                           q_bytes.ctypes.data_as(u8p), q12_bytes.ctypes.data_as(u8p), s,
+                           svdw.ctypes.data_as(u64p), dst.ctypes.data_as(u8p), len(dst),
+                           out.ctypes.data_as(u64p), os.cpu_count() or 4)
+    return out.view("<u2").astype(np.uint32).reshape(n - start, 2, 16)
 
 
 def ensure_key(curve: Curve, label: str, k: int, path: str):
-    """Write the key of 2^k points to `path` unless it is there."""
+    """Write the key of 2^k points to `path` unless it is there.  Keys of one
+    label share their rows, so a larger key beside it (`<k'>-svdw.npy`)
+    holds it as its first rows, and a smaller one is its first rows: only
+    the rows past it are made."""
     if os.path.exists(path):
         return
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    rows = make_rows(curve, label.encode(), 1 << k)
+    folder = os.path.dirname(path)
+    os.makedirs(folder, exist_ok=True)
+
+    def beside(k0):
+        return os.path.join(folder, f"{k0}-svdw.npy")
+
+    larger = [k0 for k0 in range(k + 1, 33) if os.path.exists(beside(k0))]
+    smaller = [k0 for k0 in range(k - 1, -1, -1) if os.path.exists(beside(k0))]
+    if larger:
+        rows = np.load(beside(larger[0]), mmap_mode="r")[: 1 << k]
+    elif smaller:
+        head = np.load(beside(smaller[0]))
+        rows = np.concatenate([head, make_rows(curve, label.encode(), 1 << k,
+                                               start=head.shape[0])])
+    else:
+        rows = make_rows(curve, label.encode(), 1 << k)
     tmp = f"{path}.part.npy"
     np.save(tmp, rows)
     os.replace(tmp, path)

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import os
 
+from harness.cell import ck_k
+
 
 class System:
     def __init__(self, cfg: dict, device, root: str):
@@ -39,30 +41,36 @@ class System:
             return TrivialCircuit(arity=side["arity"])
         raise ValueError(f"unknown step circuit {side['circuit']!r}")
 
-    def _key(self, side: dict, curve):
-        ck_k = self.cfg["ck_k"]
+    def _key(self, name: str, curve):
+        side, k = self.cfg[name], ck_k(self.cfg, name)
         if side["key"] == "mock":
             from mira_tpu_torch.ops.mock_commitment import MockCommitmentKey
 
-            return MockCommitmentKey(curve, ck_k, side["key_label"].encode(), self.device)
+            return MockCommitmentKey(curve, k, side["key_label"].encode(), self.device)
         from mira_tpu_torch.ops.commitment import CommitmentKey
 
         return CommitmentKey.load_or_setup_cache(
-            curve, ck_k, side["key_label"], cache_dir=os.path.join(self.root, ".cache", "ck"),
+            curve, k, side["key_label"], cache_dir=os.path.join(self.root, ".cache", "ck"),
             device=self.device)
+
+    def _side(self, name: str, circuit, key):
+        """The program's construction input of one side."""
+        from mira_tpu_torch.ivc.public_params import CircuitSide
+
+        return CircuitSide(circuit, key, self.cfg["k"])
 
     def setup(self):
         from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN
-        from mira_tpu_torch.ivc.public_params import CircuitSide, PublicParams
+        from mira_tpu_torch.ivc.public_params import PublicParams
 
         curves = {"bn254": BN254_G1, "grumpkin": GRUMPKIN}
-        sides = [self.cfg["primary"], self.cfg["secondary"]]
-        cs = [curves[s["curve"]] for s in sides]
-        self.circuits = [self._circuit(s, c) for s, c in zip(sides, cs)]
-        keys = [self._key(s, c) for s, c in zip(sides, cs)]
-        k = self.cfg["k"]
-        self.pp = PublicParams(CircuitSide(self.circuits[0], keys[0], k),
-                               CircuitSide(self.circuits[1], keys[1], k), cs[0], cs[1])
+        names = ("primary", "secondary")
+        cs = [curves[self.cfg[n]["curve"]] for n in names]
+        self.circuits = [self._circuit(self.cfg[n], c) for n, c in zip(names, cs)]
+        keys = [self._key(n, c) for n, c in zip(names, cs)]
+        self.pp = PublicParams(*(self._side(n, sc, key)
+                                 for n, sc, key in zip(names, self.circuits, keys)),
+                               cs[0], cs[1])
         ro = self.pp.primary.params.ro_spec
         stated = self.cfg["ro"]
         if [ro.t, ro.rate, ro.r_f, ro.r_p] != stated:
@@ -73,7 +81,7 @@ class System:
         """The key file the program read for a side (Pedersen keys)."""
         s = self.cfg[side]
         return os.path.join(self.root, ".cache", "ck", s["curve"], s["key_label"],
-                            f"{self.cfg['ck_k']}-svdw.npy")
+                            f"{ck_k(self.cfg, side)}-svdw.npy")
 
     def moduli(self):
         """The scalar moduli of the two sides' step functions."""

@@ -51,16 +51,21 @@ def check_line(result, stderr):
     assert all(v["limit"] == 0 for v in compared.values())
 
 
-@pytest.mark.parametrize("cell,metrics", [
-    ("tiny.steady", {"setup_s", "step_s", "step_p90_s"}),
-    ("tiny.proofs", {"setup_s", "proof_s"}),
+DECIDED = ["structure", "steps", "z_values", "io_hashes", "sps_challenges", "gate_rows",
+           "copy_rows", "lookup_sums", "commitments"]
+
+
+@pytest.mark.parametrize("cell,metrics,compared", [
+    ("tiny.steady", {"setup_s", "step_s", "step_p90_s"}, DECIDED),
+    ("tiny.proofs", {"setup_s", "proof_s"}, ["proof_z_values", "proofs_refused", *DECIDED]),
 ])
-def test_a_tiny_cell_runs_end_to_end_without_jax(cell, metrics):
+def test_a_tiny_cell_runs_end_to_end_without_jax(cell, metrics, compared):
     p, result = run(["--workload", cell, "--seed", "3147483901", "--seconds", "0.001",
                      "--trace", "0", *TINY])
     assert p.returncode == 0, p.stderr[-3000:]
     check_line(result, p.stderr)
     assert result["correct"] is True, result["compared"]
+    assert list(result["compared"]) == compared
     assert set(result["metrics"]) == metrics
     assert result["attempted"] == 1 and result["failed"] == 0
     assert all(m["value"] > 0 for m in result["metrics"].values())
@@ -79,6 +84,26 @@ def test_every_fault_makes_correct_false(fault, caught):
     check_line(result, p.stderr)
     assert result["correct"] is False
     assert result["compared"][caught]["value"] > 0
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("fault,caught", [
+    ("none", None),
+    ("altered_gt", "gt_accumulator"),  # the folded Gt element times a Gt element
+])
+def test_the_snarkstar_cell_runs_on_the_cpu(fault, caught):
+    """snarkstar-b1 with the program's mock keys, one fold step at k=19
+    (some twenty minutes a run on the CPU)."""
+    p, result = run(["--workload", "tiny.snarkstar", "--seed", "3147483903", "--seconds", "0.001",
+                     "--trace", "0", "--fault", fault, *TINY], timeout=3600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    check_line(result, p.stderr)
+    assert list(result["compared"]) == [*DECIDED, "gt_accumulator", "groth16_proofs"]
+    if caught is None:
+        assert result["correct"] is True, result["compared"]
+    else:
+        assert result["correct"] is False
+        assert result["compared"][caught]["value"] > 0
 
 
 def test_no_card_no_result():
@@ -107,15 +132,21 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["poseidon-k17.steady", "poseidon-k17.proofs2"])
+@pytest.mark.parametrize("cell,fault,caught", [
+    ("poseidon-k17.steady", "drop_cross_term", "gate_rows"),
+    ("poseidon-k17.proofs2", "drop_cross_term", "gate_rows"),
+    ("snarkstar-b1.steady", "drop_cross_term", "gate_rows"),
+    ("snarkstar-b1.steady", "altered_gt", "gt_accumulator"),
+])
 @pytest.mark.parametrize("seed", [2147483801, 2147483802, 2147483803])
-def test_the_control_fails_at_the_cells_size(card, cell, seed):
+def test_the_control_fails_at_the_cells_size(card, cell, fault, caught, seed):
     """The control (harness/runner.py Faults, `drop_cross_term`): the fold's
     E leaves out its first cross term, a fold that breaks the configuration's
     exact-folding guarantee; at the cell's own size it must read as not
-    correct."""
+    correct.  SnarkStar's Gt accumulator altered after a fold (`altered_gt`)
+    must read so too."""
     p, result = run(["--workload", cell, "--seed", str(seed), "--seconds", "10", "--trace", "0",
-                     "--fault", "drop_cross_term"], timeout=1800)
+                     "--fault", fault], timeout=1800)
     assert p.returncode == 0, p.stderr[-3000:]
     assert result["correct"] is False
-    assert result["compared"]["gate_rows"]["value"] > 0
+    assert result["compared"][caught]["value"] > 0
