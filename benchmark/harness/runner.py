@@ -134,7 +134,7 @@ def run(args, root: str, t_start: float, data_dirs=None):
     faults = Faults(args.fault, args.seed)
     faults.plant()
     system = cell.system().System(cell.config, device, root)
-    _make_keys(system, cell.config)
+    _make_keys(system, cell.config, args.seed)
     system.setup()
     traffic = cell.traffic
     unit = traffic["unit"]
@@ -300,16 +300,17 @@ def run(args, root: str, t_start: float, data_dirs=None):
     return 0, result
 
 
-def _make_keys(system, cfg):
+def _make_keys(system, cfg, seed: int):
     """The Pedersen key files, made by the benchmark (reference/keys.py)
-    where the checkout has none, before the program reads them."""
+    where the checkout has none, before the program reads them; `seed`
+    draws the rows that keygen.cpp checks of those made on the card."""
     from reference import decider, keys
 
     for side in ("primary", "secondary"):
         s = cfg[side]
         if s["key"] != "mock":
             keys.ensure_key(decider.CURVES[s["curve"]], s["key_label"], ck_k(cfg, side),
-                            system.key_file(side))
+                            system.key_file(side), seed)
 
 
 def _watch_delta(ck, widths: List[int], profiling):

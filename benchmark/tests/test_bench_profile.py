@@ -90,6 +90,7 @@ def fake_run(trace):
     ("step_s", 1.0),
     ("proof_s", 1.0),
     ("step_p90_s", 1.5),
+    ("step_s.snarkstar", 1.5),  # the units after the 2 profiled ones
     ("synthesize_ms.steady", 400.0),
     ("witness_commit_ms.steady", 100.0),
     ("cross_terms_ms.steady", 300.0),
@@ -108,6 +109,7 @@ def test_each_reader_reads_its_metric(trace, name, want):
 
 
 @pytest.mark.parametrize("name", ["synthesize_ms.steady", "zero_step_ms.proofs",
+                                  "step_s.snarkstar",
                                   "device_idle_pct.steady", "device_busy_ms.steady",
                                   "delta_msm_roofline_pct.steady"])
 def test_a_reader_that_finds_nothing_returns_none(name):
