@@ -239,7 +239,7 @@ def replay_sfc(captured: CapturedSynthesis, sfc: StepFoldingCircuit, device):
 
     if not tape_vm_available():
         raise RuntimeError("witness-tape replay needs the native tape VM "
-                           "(native/tape_vm.cpp), which did not load")
+                           "(mira_tpu_torch/native/tape_vm.cpp), which did not load")
     with span("step_inputs"):
         inputs = flatten_step_inputs(sfc.inputs, sfc.step_circuit)
     return _replay_device(captured, inputs, device)

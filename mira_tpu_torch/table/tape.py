@@ -8,8 +8,8 @@ only the input values do.  Here the first synthesis runs with `TV` (traced
 value) objects threaded through the gadget arithmetic; every arithmetic op
 and every advice-cell write is recorded.  Subsequent steps bind fresh inputs
 and execute the recorded program (Python VM here; native C++ VM in
-native/tape_vm.cpp via utils/native_lib), then scatter the computed values
-into a copy of the captured advice table.
+mira_tpu_torch/native/tape_vm.cpp via utils/native_lib), then scatter the
+computed values into a copy of the captured advice table.
 
 Correctness contract: gadget synthesis control flow must depend only on
 circuit structure (shapes, limb counts, bit widths), never on witness

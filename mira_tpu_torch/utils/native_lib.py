@@ -6,16 +6,20 @@ runtime paths — the roles rayon + halo2curves' 64-bit field arithmetic
 play for the reference.  Built lazily with g++; callers must handle a
 None return (no toolchain).
 
-Copied from mira_tpu/utils/native_lib.py; the port imports nothing of mira_tpu.
+Copied from mira_tpu/utils/native_lib.py (the tape VM it loads is the port's
+own, below); the port imports nothing of mira_tpu.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
 from functools import lru_cache
+
+from .tracing import count
 
 _NATIVE_DIR = os.path.join(
     os.path.dirname(__file__), "..", "..", "native"
@@ -27,6 +31,7 @@ _build_lock = threading.Lock()
 u64p = ctypes.POINTER(ctypes.c_uint64)
 i32p = ctypes.POINTER(ctypes.c_int32)
 u32p = ctypes.POINTER(ctypes.c_uint32)
+i64p = ctypes.POINTER(ctypes.c_int64)
 
 
 @lru_cache(maxsize=1)
@@ -93,43 +98,55 @@ def available() -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Witness-tape VM (native/tape_vm.cpp): executes the straight-line
-# witness-generation program captured by table/tape.py.  The SSA slot space
-# is renamed to a small reusable register file (liveness analysis) so the
-# working set stays cache-resident; advice-cell values are emitted inline by
-# the VM as 4x64-bit words.
+# Witness-tape VM (the port's own native/tape_vm.cpp): executes the
+# straight-line witness-generation program captured by table/tape.py.  The SSA
+# slot space is renamed to a small reusable register file (liveness analysis)
+# so the working set stays cache-resident; advice-cell values are emitted
+# inline by the VM as 4x64-bit words.  Its output equals the shared VM's
+# (native/tape_vm.cpp beside mira_tpu) bit for bit; its modular ops by an odd
+# divisor of at most 4 words run on fixed-width code, and it reports how many
+# took that route.
 
-_TAPE_SRC = os.path.join(_NATIVE_DIR, "tape_vm.cpp")
-_TAPE_SO = os.path.join(_NATIVE_DIR, "libmiratape.so")
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_TAPE_SRC = os.path.join(_PKG_DIR, "native", "tape_vm.cpp")
+_TAPE_BUILD = os.path.join(_PKG_DIR, "build")
+_TAPE_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _W = 10  # 640-bit registers, matches tape_vm.cpp
 
 
 @lru_cache(maxsize=1)
 def load_tape_vm():
+    """The port's tape VM, built by g++ on first use into `build/`, named by
+    the digest of its source and flags.  None without a toolchain."""
     with _build_lock:
-        if not os.path.exists(_TAPE_SO) or os.path.getmtime(
-            _TAPE_SO
-        ) < os.path.getmtime(_TAPE_SRC):
+        try:
+            with open(_TAPE_SRC, "rb") as fh:
+                src = fh.read()
+        except OSError:
+            return None
+        digest = hashlib.sha256(src + " ".join(_TAPE_FLAGS).encode()).hexdigest()[:16]
+        so = os.path.join(_TAPE_BUILD, f"libmiratape-{digest}.so")
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
             try:
+                os.makedirs(_TAPE_BUILD, exist_ok=True)
                 subprocess.run(
-                    [
-                        "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                        _TAPE_SRC, "-o", _TAPE_SO,
-                    ],
+                    ["g++", *_TAPE_FLAGS, _TAPE_SRC, "-o", tmp],
                     check=True,
                     capture_output=True,
                 )
+                os.replace(tmp, so)
             except (OSError, subprocess.CalledProcessError):
                 return None
         try:
-            lib = ctypes.CDLL(_TAPE_SO)
+            lib = ctypes.CDLL(so)
         except OSError:
             return None
     lib.mira_tape_execute.argtypes = [
         i32p, i32p, i32p, i32p, ctypes.c_int64,
         u64p, i32p, ctypes.c_int64, ctypes.c_int64,
-        i32p, i32p, u64p,
+        i32p, i32p, u64p, i64p,
     ]
     lib.mira_tape_execute.restype = ctypes.c_int
     return lib
@@ -286,7 +303,10 @@ def _tape_prepare(tape):
 
 def tape_vm_run_raw(tape, inputs):
     """Run the native VM; returns (out_buf (nwrites, 4) uint64, prep) with
-    out_buf rows aligned with prep['dyn_writes'].  None when unavailable."""
+    out_buf rows aligned with prep['dyn_writes'].  None when unavailable.
+    Adds the VM's modular ops (MOD, ISZM, INVMOD) by route to the counters
+    `tape_modop_fast` and `tape_modop_general` (utils/tracing.py), which
+    charge them to the innermost open span."""
     import numpy as np
 
     lib = load_tape_vm()
@@ -307,6 +327,7 @@ def tape_vm_run_raw(tape, inputs):
 
     n_ops = len(prep["code"])
     out_buf = np.zeros((len(prep["dyn_writes"]), 4), np.uint64)
+    routes = np.zeros(2, np.int64)
     rc = lib.mira_tape_execute(
         prep["code"].ctypes.data_as(i32p),
         prep["a_reg"].ctypes.data_as(i32p),
@@ -320,9 +341,12 @@ def tape_vm_run_raw(tape, inputs):
         prep["emit_start"].ctypes.data_as(i32p),
         prep["emit_dst"].ctypes.data_as(i32p),
         out_buf.ctypes.data_as(u64p),
+        routes.ctypes.data_as(i64p),
     )
     if rc != 0:
         raise RuntimeError(f"tape VM error {rc}")
+    count("tape_modop_fast", int(routes[0]))
+    count("tape_modop_general", int(routes[1]))
     return out_buf, prep
 
 

@@ -1,7 +1,8 @@
 """k=17 parity of the port on the CPU, behind the `slow` marker: the
 step-folding circuit's fold evaluation against mira_tpu's native row VM,
-and the port's witness-tape replay against a fresh synthesis inside a
-two-curve IVC step.  These tests check witnesses and row evaluations, not
+the port's witness-tape replay against a fresh synthesis inside a
+two-curve IVC step, and the port's tape VM against the shared one on the
+captured tapes, every modular op on its fast routes.  These tests check witnesses and row evaluations, not
 commitments, so the keys are a stand-in whose every commitment is the
 identity point: a plain-PyTorch MSM over 2^21 points on the CPU would take
 hours.
@@ -9,17 +10,22 @@ hours.
     python -m pytest tests/test_torch_ivc_k17.py -q -m slow
 """
 
+import random
+
 import numpy as np
 import pytest
 import torch
 
 from mira_tpu.polynomial.native_evaluator import NativeFoldEvaluator
+from mira_tpu.table.tape import Tape as MiraTape
+from mira_tpu.utils import native_lib as mira_native
 from mira_tpu_torch.convert import limbs16_to_words, words_to_limbs16
 from mira_tpu_torch.curves.host import BN254_G1, GRUMPKIN, AffinePoint
 from mira_tpu_torch.ivc.ivc import IVC
 from mira_tpu_torch.ivc.public_params import CircuitSide, PublicParams
 from mira_tpu_torch.ivc.step_circuit import TrivialCircuit
 from mira_tpu_torch.table.runner import CircuitRunner
+from mira_tpu_torch.utils import native_lib, tracing
 
 from torch_port_helpers import expression_to_mira  # also sizes torch's threads
 
@@ -102,3 +108,31 @@ def test_tape_replay_matches_fresh_synthesis(pp, monkeypatch):
     # the public parameters capture both sides' tapes, so the zero step
     # replays them too
     assert sorted(checked) == ["primary", "primary", "secondary", "secondary"]
+
+
+@pytest.mark.parametrize("side", ["primary", "secondary"])
+def test_captured_tape_vm_matches_shared_vm(pp, side):
+    """The port's tape VM on a captured k=17 tape: out_buf equal to the
+    shared VM's, word for word, at the capture inputs and at 3 seeded
+    full-width input vectors, and no modular op on the general route."""
+    captured = pp.tapes[side]
+    tape = captured.tape
+    mira_tape = MiraTape()  # the same program, as plain data
+    for name in ("slots", "op_code", "op_a", "op_b", "op_out", "writes"):
+        setattr(mira_tape, name, list(getattr(tape, name)))
+    mira_tape.num_inputs = tape.num_inputs
+    mira_tape.frozen = True
+    rng = random.Random(17)
+    vectors = [tape.slots[:tape.num_inputs]] + [
+        [rng.randrange(captured.modulus) for _ in range(tape.num_inputs)]
+        for _ in range(3)]
+    for inputs in vectors:
+        before = tracing.counts()
+        got = native_lib.tape_vm_run_raw(tape, inputs)[0]
+        after = tracing.counts()
+        want = mira_native.tape_vm_run_raw(mira_tape, inputs)[0]
+        assert np.array_equal(got, want)
+        fast, general = (after.get(k, 0) - before.get(k, 0)
+                         for k in ("tape_modop_fast", "tape_modop_general"))
+        assert general == 0
+        assert fast == sum(c in (3, 5, 6) for c in tape.op_code)  # MOD, INVMOD, ISZM
